@@ -7,8 +7,13 @@ Phases:
   card     print the card, turn TF32 off, build every CUDA source (nvcc, in
            parallel) and print the build time;
   kernels  hold each kernel against its plain PyTorch version at every shape
-           of the main path (f32 and bf16, ReLU on and off) and time kernel,
-           plain version, one PyTorch library call, against the bytes bound;
+           of the main path (f32 and bf16, ReLU on and off; K1 in the design
+           its planner picks and in the three-pass design, and once with
+           |mean|/std = 1000) and time them: device time from CUDA graphs with
+           the L2 evicted between calls, and host-inclusive call time, the
+           two K1 designs in turns (three-pass, planned, planned, three-pass),
+           beside the plain version, one PyTorch library call and the bytes
+           bound;
   forward  full-width coord+MLE net at 480x720, B=8, seeded weights: kernel
            path against the same net through the plain norm, and 28 kernel
            launches per forward;
@@ -40,6 +45,7 @@ WORK_DIR = os.path.join(HERE, "crossloc_tpu_torch", "build", "smoke")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, non-tensor-core fp32
+FLUSH_BYTES = 96 << 20  # written between timed calls: more than the 50 MB L2
 BATCH = 8
 IMG_H, IMG_W = 480, 720
 
@@ -58,7 +64,49 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def device_ms(fns, flush, n: int = 20, reps: int = 5) -> list:
+    """Device time per call of each fn: a CUDA graph of n captured calls,
+    each after `flush` (a write of FLUSH_BYTES, which evicts the 50 MB L2 so
+    every call reads its input from HBM), replayed `reps` times (median),
+    less the same graph of flushes alone. No host work inside the time."""
+    import torch
+
+    def graph(fn):
+        fn(), flush()  # build, allocate and check configurations before capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(n):
+                flush()
+                fn()
+        return g
+
+    def replay_ms(g):
+        ts = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end))
+        return sorted(ts)[len(ts) // 2]
+
+    g0 = graph(lambda: None)
+    base = replay_ms(g0)
+    out = []
+    for fn in fns:
+        g = graph(fn)
+        out.append((replay_ms(g) - base) / n)
+        del g
+    del g0
+    return out
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Host-inclusive time per call: back-to-back calls between two events
+    (a call's host work, when larger than its device time, sets the pace)."""
     import torch
 
     for _ in range(warmup):
@@ -119,38 +167,49 @@ class Smoke:
         import torch.nn.functional as F
 
         from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import _plan, _three_pass
 
         gen = torch.Generator(device="cuda").manual_seed(0)
+        flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        flush = flush_buf.zero_
         worst = 0.0
-        tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, three_pass_ms=0.0)
+               for dt in ("float32", "bfloat16")}
         rows = []
         for C, H, W, relu_path, count in GN_PATH_SHAPES:
             G = min(32, C)
             for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype)[6:]
+                plan = _plan(BATCH, H, W, C, G, dtype)
                 x = (torch.randn(BATCH, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
                 scale = torch.randn(C, device="cuda", generator=gen)
                 bias = torch.randn(C, device="cuda", generator=gen)
                 for relu in (True, False):
-                    y = group_norm_relu(x, scale, bias, G, 1e-5, relu)
                     ref = group_norm_relu_plain(x, scale, bias, G, 1e-5, relu)
-                    torch.cuda.synchronize()
-                    err = (y.float() - ref.float()).abs()
-                    # f32: reassociation of fp32 sums only; bf16: one bf16
-                    # rounding step of the output (2^-7 relative) apart
-                    atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2.0**-7)
-                    ok = bool((err <= atol + rtol * ref.float().abs()).all())
-                    mx = float(err.max())
-                    worst = max(worst, mx) if dtype == torch.float32 else worst
-                    log(f"  K1 C={C} {H}x{W} {str(dtype)[6:]} relu={relu}: max_abs_err={mx:.3e} "
-                        f"(limit {atol:g} + {rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"K1 disagrees with plain at C={C} {H}x{W} {dtype}")
-                if relu_path is False and dtype == torch.bfloat16:
-                    continue
+                    for design, fn in (("planned", group_norm_relu), ("three_pass", _three_pass)):
+                        y = fn(x, scale, bias, G, 1e-5, relu)
+                        torch.cuda.synchronize()
+                        err = (y.float() - ref.float()).abs()
+                        # f32: reassociation of fp32 sums only; bf16: one bf16
+                        # rounding step of the output (2^-7 relative) apart
+                        atol, rtol = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 2.0**-7)
+                        ok = bool((err <= atol + rtol * ref.float().abs()).all())
+                        mx = float(err.max())
+                        if design == "planned" and dtype == torch.float32:
+                            worst = max(worst, mx)
+                        name = plan.design if design == "planned" else "three_pass"
+                        log(f"  K1 {name} C={C} {H}x{W} {dname} relu={relu}: max_abs_err={mx:.3e} "
+                            f"(limit {atol:g} + {rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(f"K1 {name} disagrees with plain at C={C} {H}x{W} "
+                                                 f"{dtype} relu={relu}")
+                    del y, ref
                 relu = relu_path
-                k_ms = cuda_ms(lambda: group_norm_relu(x, scale, bias, G, 1e-5, relu), self.iters)
-                p_ms = cuda_ms(lambda: group_norm_relu_plain(x, scale, bias, G, 1e-5, relu),
-                               max(3, self.iters // 4))
+                planned = lambda: group_norm_relu(x, scale, bias, G, 1e-5, relu)
+                three = lambda: _three_pass(x, scale, bias, G, 1e-5, relu)
+                # in turns: three-pass, planned, planned, three-pass
+                dev = device_ms([three, planned, planned, three], flush)
+                call = [cuda_ms(f, self.iters) for f in (three, planned, planned, three)]
                 xc = x.permute(0, 3, 1, 2)  # channels_last NCHW view, no copy
                 sw, sb = scale.to(dtype), bias.to(dtype)
 
@@ -158,31 +217,84 @@ class Smoke:
                     o = F.group_norm(xc, G, sw, sb, 1e-5)
                     return torch.relu_(o) if relu else o
 
-                l_ms = cuda_ms(lib_call, self.iters)
+                p_ms, l_ms = device_ms(
+                    [lambda: group_norm_relu_plain(x, scale, bias, G, 1e-5, relu), lib_call],
+                    flush, n=5)
                 nbytes = 2 * x.numel() * x.element_size() + 2 * C * 4
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 8 * x.numel() / FP32_FLOPS)
-                rows.append(dict(C=C, H=H, W=W, dtype=str(dtype)[6:], relu=relu, ms=k_ms,
-                                 plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
-                                 per_forward=count))
-                log(f"  K1 time C={C} {H}x{W} {str(dtype)[6:]} relu={relu}: kernel {k_ms:.4f} ms, "
-                    f"plain {p_ms:.4f} ms, F.group_norm(+relu) {l_ms:.4f} ms, "
-                    f"bytes bound {bound:.4f} ms (bound / kernel = {bound / k_ms:.1%})")
-                if dtype == torch.float32:
-                    tot["ms"] += count * k_ms
-                    tot["plain_ms"] += count * p_ms
-                    tot["library_ms"] += count * l_ms
-                    tot["bound_ms"] += count * bound
-                del x, y, ref
+                row = dict(C=C, H=H, W=W, dtype=dname, relu=relu, design=plan.design,
+                           cluster=plan.cluster, cb=plan.cb, ms=(dev[1] + dev[2]) / 2,
+                           call_ms=(call[1] + call[2]) / 2,
+                           three_pass_ms=(dev[0] + dev[3]) / 2,
+                           three_pass_call_ms=(call[0] + call[3]) / 2, turns_ms=dev,
+                           turns_call_ms=call, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
+                           per_forward=count)
+                rows.append(row)
+                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.smem_bytes} B smem"
+                         if plan.design == "cluster" else "three_pass")
+                log(f"  K1 time C={C} {H}x{W} {dname} relu={relu} [{where}]: device "
+                    f"{row['ms']:.4f} ms (three-pass {row['three_pass_ms']:.4f}; turns "
+                    + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
+                    f"(three-pass {row['three_pass_call_ms']:.4f}), plain {p_ms:.4f} ms, "
+                    f"F.group_norm(+relu) {l_ms:.4f} ms, bytes bound {bound:.4f} ms "
+                    f"(bound / device = {bound / row['ms']:.1%})")
+                t = tot[dname]
+                t["ms"] += count * row["ms"]
+                t["three_pass_ms"] += count * row["three_pass_ms"]
+                t["plain_ms"] += count * p_ms
+                t["library_ms"] += count * l_ms
+                t["bound_ms"] += count * bound
+                del x
+        self._large_mean_check()
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "k1_shapes.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows), f, indent=1)
-        log(f"K1 over one f32 forward's 28 calls (B={BATCH}, 480x720): kernel {tot['ms']:.3f} ms, "
-            f"plain {tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, "
-            f"bound {tot['bound_ms']:.3f} ms")
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
+                           rows=rows, per_forward=tot), f, indent=1)
+        for dname, t in tot.items():
+            log(f"K1 over one {dname} forward's 28 calls (B={BATCH}, 480x720), device time: "
+                f"planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
+        f32 = tot["float32"]
         self.kernels["groupnorm"] = dict(
             name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:57", launches=0,
-            max_abs_err=worst, **tot, bound_by="bytes")
+            max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+
+    def _large_mean_check(self):
+        """f32 input with mean 1000 and std 1 at the 512-channel path shape:
+        each design against float64 (two f32 roundings of mu allowed beyond
+        the f32 tolerance) and against the plain twin (whose own distance
+        from float64 is allowed on top)."""
+        import torch
+
+        from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import _three_pass
+
+        C, H, W, G, mean = 512, 60, 90, 32, 1000.0
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        x = torch.randn(BATCH, H, W, C, device="cuda", generator=gen) + mean
+        scale = torch.randn(C, device="cuda", generator=gen)
+        bias = torch.randn(C, device="cuda", generator=gen)
+        xd = x.double().reshape(BATCH, H * W, G, C // G)
+        mu = xd.mean(dim=(1, 3), keepdim=True)
+        var = (xd - mu).square().mean(dim=(1, 3), keepdim=True)
+        exact = ((xd - mu) / torch.sqrt(var + 1e-5)).reshape(x.shape) * scale.double() + bias.double()
+        plain = group_norm_relu_plain(x, scale, bias, G, 1e-5, False).double()
+        e_plain = (plain - exact).abs()
+        limit = 1e-4 + 1e-4 * exact.abs() + 2 * 2.0**-23 * mean * scale.double().abs()
+        for name, fn in (("planned", group_norm_relu), ("three_pass", _three_pass)):
+            y = fn(x, scale, bias, G, 1e-5, False).double()
+            e_exact, e_vs_plain = (y - exact).abs(), (y - plain).abs()
+            ok = bool((e_exact <= limit).all()) and bool((e_vs_plain <= limit + e_plain).all())
+            log(f"  K1 {name} |mu|/std=1000 C={C} {H}x{W} f32: max|K1 - f64| "
+                f"{float(e_exact.max()):.3e}, max|K1 - plain| {float(e_vs_plain.max()):.3e}, "
+                f"max|plain - f64| {float(e_plain.max()):.3e} (limit vs f64: 1e-4 + 1e-4*|ref| "
+                f"+ 2*2^-23*|mu|*|gamma|; vs plain: that + |plain - f64|) "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K1 {name} loses precision at |mu|/std = 1000")
 
     # -- phase 3 -----------------------------------------------------------
     def phase_forward(self):
@@ -386,7 +498,8 @@ class Smoke:
             groups = {}
             for e in kernels:
                 n = e.name.lower()
-                key = ("K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize", "gn_apply"))
+                key = ("K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize", "gn_apply",
+                                                               "gn_cluster"))
                        else "conv" if any(k in n for k in ("fprop", "conv", "xmma", "cutlass",
                                                           "implicit_gemm", "cudnn"))
                        else "other (solver, residual adds, copies)")
