@@ -9,11 +9,11 @@ Phases:
   kernels  hold each kernel against its plain PyTorch version at every shape
            of the main path (f32 and bf16, ReLU on and off; K1 in the design
            its planner picks and in the three-pass design, and once with
-           |mean|/std = 1000) and time them: device time from CUDA graphs with
-           the L2 evicted between calls, and host-inclusive call time, the
-           two K1 designs in turns (three-pass, planned, planned, three-pass),
-           beside the plain version, one PyTorch library call and the bytes
-           bound;
+           |mean|/std = 1000; K1's backward at the training batch) and time
+           them: device time from CUDA graphs with the L2 evicted between
+           calls, and host-inclusive call time, the two K1 designs in turns
+           (three-pass, planned, planned, three-pass), beside the plain
+           version, one PyTorch library call and the bytes bound;
   forward  full-width coord+MLE net at 480x720, B=8, seeded weights: kernel
            path against the same net through the plain norm, and 28 kernel
            launches per forward;
@@ -21,8 +21,13 @@ Phases:
            `test_single_task` in-process on cuda (the main path: results_*.txt,
            finite poses, kernel launches counted on that run), again with
            --bf16; GT-oracle solver accuracy against the CPU; img/s.
+  train    the port's `train_single_task` on cuda with the encoder-pretrain
+           settings on a 480x720 plane scene (K1 and K1-bwd launches counted
+           per step), its model.net served by `test_single_task` on cuda,
+           one step's gradients on the card against the CPU, 10 steps on one
+           batch, a --bf16 run, and the train-step time at B=12;
   profile  (extra, not in the default run) kernel-time breakdown of one
-           image -> pose batch with torch.profiler.
+           image -> pose batch and of one training step with torch.profiler.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
 `{"ok": true, "device": {...}}`. Exits non-zero if any phase fails, if no
@@ -47,7 +52,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12  # H100 SXM, non-tensor-core fp32
 FLUSH_BYTES = 96 << 20  # written between timed calls: more than the 50 MB L2
 BATCH = 8
+TRAIN_BATCH = 12  # script_clean_training/encoder_pretrain.sh
 IMG_H, IMG_W = 480, 720
+# the training CLI as script_clean_training/encoder_pretrain.sh runs it (coord)
+PRETRAIN_ARGS = ["urbanscape", "--task", "coord", "--inittolerance", "50.0", "--softclamp",
+                 "100", "--hardclamp", "1000", "--learningrate", "2e-4", "--batch_size",
+                 str(TRAIN_BATCH), "--uncertainty", "MLE", "--auto_resume",
+                 "--sim_data_chunk", "1.0", "--real_data_chunk", "0.0", "--device", "cuda"]
 
 # (C, H, W, relu, layers per forward) of the 28 Conv->GN layers at 480x720
 GN_PATH_SHAPES = [
@@ -261,6 +272,118 @@ class Smoke:
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:57", launches=0,
             max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
             library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+        self._backward_kernel(flush)
+
+    def _backward_kernel(self, flush):
+        """K1's backward at every path shape, B=TRAIN_BATCH, f32 and bf16,
+        ReLU on and off, against the autograd of the plain twin, and timed:
+        device time (CUDA graphs, L2 evicted), call time, the plain twin
+        (host-inclusive events: its autograd is not captured in a graph),
+        the library's two calls (threshold_backward + native_group_norm_backward
+        on NCHW copies, its own layout) and the bytes bound (x and dy read
+        once, dx written once)."""
+        import torch
+
+        from crossloc_tpu_torch.ops import (group_norm_relu_backward,
+                                            group_norm_relu_backward_plain, group_norm_relu_plain)
+        from crossloc_tpu_torch.ops.groupnorm import _launch
+
+        B = TRAIN_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+               for dt in ("float32", "bfloat16")}
+        rows, worst = [], 0.0
+        for C, H, W, relu_path, count in GN_PATH_SHAPES:
+            G = min(32, C)
+            for dtype in (torch.float32, torch.bfloat16):
+                dname = str(dtype)[6:]
+                x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
+                scale = torch.randn(C, device="cuda", generator=gen)
+                bias = torch.randn(C, device="cuda", generator=gen)
+                # dy is zero where the plain pre-activation lies within 1e-3 of
+                # the ReLU's kink: the kernel's statistics round in another
+                # order, which may flip the mask of such a cell
+                pre = group_norm_relu_plain(x.float(), scale, bias, G, 1e-5, False)
+                dy = (torch.randn(B, H, W, C, device="cuda", generator=gen)
+                      * (pre.abs() > 1e-3)).to(dtype)
+                del pre
+                for relu in (True, False):
+                    stats = torch.empty(B, G, 2, device="cuda")
+                    _launch(x, scale, bias, G, 1e-5, relu, stats)  # the forward writes them
+                    got = group_norm_relu_backward(x, scale, bias, stats, dy, G, relu)
+                    ref = group_norm_relu_backward_plain(x, scale, bias, dy, G, 1e-5, relu)
+                    torch.cuda.synchronize()
+                    # f32: dx within 1e-4 * max|ref| + 1e-4 * |ref|, dscale and
+                    # dbias within 1e-4 * max|ref| (fp32 sums in another
+                    # order); bf16: one bf16 ulp of dx (2^-7 * |ref|) beyond
+                    # that (both sides round an fp32 dx to bf16)
+                    rel = 1e-4 + (2.0**-7 if dtype == torch.bfloat16 else 0.0)
+                    errs, ok = [], True
+                    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+                        a, r = a.float(), r.float()
+                        err = (a - r).abs()
+                        lim = 1e-4 * r.abs().max() + (rel * r.abs() if name == "dx" else 0.0)
+                        ok = ok and bool((err <= lim).all())
+                        errs.append(float(err.max()))
+                    if dtype == torch.float32:
+                        worst = max(worst, errs[0])
+                    log(f"  K1-bwd C={C} {H}x{W} B={B} {dname} relu={relu}: max_abs_err dx "
+                        f"{errs[0]:.3e} (max|dx| {float(ref[0].float().abs().max()):.3e}), "
+                        f"dscale {errs[1]:.3e}, dbias {errs[2]:.3e} {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(f"K1-bwd disagrees with plain at C={C} {H}x{W} "
+                                             f"{dtype} relu={relu}")
+                    del got, ref
+                relu = relu_path
+                stats = torch.empty(B, G, 2, device="cuda")
+                _launch(x, scale, bias, G, 1e-5, relu, stats)
+                kernel = lambda: group_norm_relu_backward(x, scale, bias, stats, dy, G, relu)
+                dev = device_ms([kernel, kernel], flush)
+                call = cuda_ms(kernel, self.iters)
+                plain = cuda_ms(lambda: group_norm_relu_backward_plain(
+                    x, scale, bias, dy, G, 1e-5, relu), iters=3, warmup=1)
+                xc = x.permute(0, 3, 1, 2).contiguous()
+                dyc = dy.permute(0, 3, 1, 2).contiguous()
+                sw, sb = scale.to(dtype), bias.to(dtype)
+                out, mean, rstd = torch.ops.aten.native_group_norm(xc, sw, sb, B, C, H * W, G,
+                                                                   1e-5)
+                yl = torch.relu(out)
+
+                def lib_call():
+                    g = torch.ops.aten.threshold_backward(dyc, yl, 0.0) if relu else dyc
+                    return torch.ops.aten.native_group_norm_backward(
+                        g, xc, mean, rstd, sw, B, C, H * W, G, [True, True, True])
+
+                (lib,) = device_ms([lib_call], flush, n=5)
+                nbytes = 3 * x.numel() * x.element_size() + (4 * C + 2 * B * G) * 4
+                bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 12 * x.numel() / FP32_FLOPS)
+                row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, ms=sum(dev) / 2,
+                           turns_ms=dev, call_ms=call, plain_ms=plain, library_ms=lib,
+                           bound_ms=bound, per_step=count)
+                rows.append(row)
+                log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu}: device "
+                    f"{row['ms']:.4f} ms (turns {dev[0]:.4f}/{dev[1]:.4f}), call {call:.4f} ms, "
+                    f"plain {plain:.4f} ms, library {lib:.4f} ms, bytes bound {bound:.4f} ms "
+                    f"(bound / device = {bound / row['ms']:.1%})")
+                t = tot[dname]
+                t["ms"] += count * row["ms"]
+                t["plain_ms"] += count * plain
+                t["library_ms"] += count * lib
+                t["bound_ms"] += count * bound
+                del x, dy, xc, dyc, out, yl
+        with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows,
+                           per_step=tot), f, indent=1)
+        for dname, t in tot.items():
+            log(f"K1-bwd over one {dname} training step's 28 calls (B={B}, 480x720), device "
+                f"time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        f32 = tot["float32"]
+        self.kernels["groupnorm_backward"] = dict(
+            name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
+            replaces="crossloc_tpu/ops/pallas_groupnorm.py:141", launches=0,
+            max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
 
     def _large_mean_check(self):
         """f32 input with mean 1000 and std 1 at the 512-channel path shape:
@@ -467,10 +590,316 @@ class Smoke:
                            oracle_median_m=t_med, oracle_median_deg=r_med), f, indent=1)
         shutil.rmtree(WORK_DIR, ignore_errors=True)
 
+    # -- phase 5 -----------------------------------------------------------
+    def phase_train(self):
+        import re
+
+        import numpy as np
+        import torch
+
+        from crossloc_tpu_torch import data, ops
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+        from crossloc_tpu_torch.cli import train_single_task as train_cli
+        from crossloc_tpu_torch.utils import read_training_log
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n_frames = 2 * TRAIN_BATCH
+        work = WORK_DIR + "_train"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        t0 = time.perf_counter()
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "train_sim"), n=n_frames,
+                                img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=0, scene="plane")
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "val_drone_real"), n=BATCH,
+                                img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=1, scene="plane")
+        log(f"wrote a {n_frames}-frame train_sim and a {BATCH}-frame val_drone_real plane scene "
+            f"at {IMG_H}x{IMG_W} in {time.perf_counter() - t0:.1f} s")
+
+        def train(session, extra):
+            """The training CLI in process on cuda; (output dir, losses, K1 and
+            K1-bwd launches, wall s)."""
+            args = PRETRAIN_ARGS + ["--datasets_dir", datasets, "--ckpt_dir",
+                                    os.path.join(work, "ckpts"), "--session", session, *extra]
+            cwd = os.getcwd()
+            os.chdir(work)
+            ops.group_norm_relu.launches = 0
+            ops.group_norm_relu_backward.launches = 0
+            t = time.perf_counter()
+            try:
+                out_dir = train_cli.main(args)
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+            wall = time.perf_counter() - t
+            fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+            text = open(os.path.join(out_dir, "output.log")).read()
+            losses = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", text)]
+            return out_dir, losses, fwd, bwd, wall
+
+        # the main path: encoder pretraining, 2 epochs of 2 steps
+        out_dir, losses, fwd, bwd, wall = train("smoke", ["--epochs", "2"])
+        steps = 2 * n_frames // TRAIN_BATCH
+        log(f"train_single_task on cuda (B={TRAIN_BATCH}, {IMG_H}x{IMG_W}, f32, 2 epochs): "
+            f"{wall:.1f} s wall for {steps} steps, losses {losses}, {fwd} K1 and {bwd} K1-bwd "
+            f"launches")
+        if "groupnorm_backward" in self.kernels:  # the kernels phase ran
+            self.kernels["groupnorm_backward"]["launches"] = bwd
+        if fwd != 28 * steps or bwd != 28 * steps:
+            raise AssertionError(f"expected {28 * steps} K1 and K1-bwd launches, got {fwd}/{bwd}")
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        if read_training_log(os.path.join(out_dir, "output.log"), n_frames) != (2 * n_frames, 1):
+            raise AssertionError("output.log does not parse to (iteration 48, epoch 1)")
+        ckpt_dir = os.path.join(work, "ckpts", os.path.basename(out_dir))
+        ckpts = sorted(f for f in os.listdir(ckpt_dir) if f.startswith("ckpt_iter_"))
+        for f in ("model.net", "FLAG_training_done.nodata"):
+            if not os.path.exists(os.path.join(out_dir, f)):
+                raise AssertionError(f"{f} not written")
+        if not ckpts or not os.path.exists(os.path.join(ckpt_dir, "FLAG_training_done.nodata")):
+            raise AssertionError("ckpt_iter_*.net or the checkpoint FLAG not written")
+        log(f"written: model.net, {ckpts}, FLAG_training_done.nodata (both directories)")
+
+        # serve what was trained
+        logs = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                              "--network_in", os.path.join(out_dir, "model.net"), "--section",
+                              "val_drone_real", "--datasets_dir", datasets, "--save_pred",
+                              "--device", "cuda"])
+        pred_dir = os.path.join(out_dir, "coord_pred_model.net_val_drone_real")
+        poses = [np.load(os.path.join(pred_dir, f))["pose_pred"]
+                 for f in sorted(os.listdir(pred_dir))]
+        median = re.findall(r"Median Error:\s+(\d+.\d+) deg, (\d+.\d+) m", open(logs[0]).read())
+        log(f"served the trained model.net on cuda: {logs[0]}, {len(poses)} poses, median "
+            f"{median[-1][1]} m / {median[-1][0]} deg after {steps} steps")
+        if len(poses) != BATCH or not all(np.isfinite(p).all() for p in poses):
+            raise AssertionError("missing or non-finite poses from the trained net")
+
+        self._gradients_against_cpu(datasets)
+        self._fixed_batch_descends(datasets)
+
+        _, losses16, fwd16, bwd16, wall16 = train("smoke_bf16", ["--epochs", "1", "--bf16"])
+        log(f"train_single_task --bf16 on cuda: {wall16:.1f} s, losses {losses16}, {fwd16} K1 "
+            f"and {bwd16} K1-bwd launches")
+        if fwd16 != 28 * 2 or bwd16 != 28 * 2 or not all(math.isfinite(v) for v in losses16):
+            raise AssertionError("the --bf16 training run is off")
+        self._step_time(datasets)
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _train_batch(self, datasets, n, device, augment=True, seed=0):
+        """(normalised images, poses, labels, focal, pp_shift) of the first n
+        train_sim frames, augmented on the CPU with fixed draws, on `device`."""
+        import torch
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.train import TrainBatch
+
+        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", "train_sim"),
+                               image_height=IMG_H).collate(range(n))
+        images = torch.from_numpy(b["image"])
+        labels, poses = torch.from_numpy(b["coord"]), torch.from_numpy(b["pose"])
+        focal = torch.tensor(float(b["focal"][0]))
+        if augment:
+            draws = data.draw_augmentation(torch.Generator().manual_seed(seed), n)
+            images, labels, poses, focal, pp = data.augment_batch(images, labels, poses, focal,
+                                                                  draws)
+        else:
+            images, pp = data.normalize_images(images), None
+        return TrainBatch(*(None if t is None else t.to(device)
+                            for t in (images, poses, labels, focal, pp)))
+
+    def _model(self, device, dtype=None):
+        import torch
+
+        from crossloc_tpu_torch import data, models
+
+        m = models.build_network("coord", "MLE", mean=list(data.get_label_mean("urbanscape",
+                                                                                "coord")))
+        models.init_weights(m, torch.Generator().manual_seed(2021)).to(device)
+        if dtype is not None:
+            m.dtype = dtype
+        return m.to(memory_format=torch.channels_last) if device == "cuda" else m
+
+    def _gradients_against_cpu(self, datasets):
+        """One step at full width, 480x720, B=2, same weights and batch: the
+        card (K1, K1-bwd, TF32 off) against the CPU (plain twins) in float32,
+        and both against the CPU in float64 (the loss stays float32)."""
+        import torch
+
+        from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
+
+        grads, losses = {}, {}
+        batch = self._train_batch(datasets, 2, "cpu")
+        for run, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("cpu64", "cpu", torch.float64)):
+            model = self._model(dev)
+            if dtype == torch.float64:
+                model.double().dtype = torch.float64
+            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+            b = TrainBatch(*(t.to(dev, dtype) for t in batch))
+            t = time.perf_counter()
+            m = train_step(state, b, "coord", "MLE")
+            losses[run] = float(m["loss"])
+            grads[run] = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+            log(f"  one step, {run}: loss {losses[run]:.6f}, grad norm "
+                f"{float(m['grad_norm']):.6f}, {time.perf_counter() - t:.1f} s")
+            del model, state
+
+        def dist(a, b):
+            return {k: float((grads[a][k] - g).norm()) for k, g in grads[b].items()}
+
+        norm = {k: float(g.norm()) for k, g in grads["cpu"].items()}
+        total = float(torch.sqrt(sum(g.square().sum() for g in grads["cpu64"].values())))
+        d_cc, d_c64, d_cpu64 = dist("card", "cpu"), dist("card", "cpu64"), dist("cpu", "cpu64")
+        rel = {k: d_cc[k] / max(norm[k], 1e-30) for k in norm}
+        worst = sorted(rel, key=rel.get, reverse=True)[:4]
+        log(f"gradients card vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / |g_cpu| "
+            f"median {sorted(rel.values())[len(rel) // 2]:.3e} over {len(rel)} tensors, "
+            f"{sum(v > 1e-3 for v in rel.values())} above 1e-3; worst "
+            + ", ".join(f"{k} {rel[k]:.3e} (card vs f64 {d_c64[k] / norm[k]:.3e}, CPU f32 vs "
+                        f"f64 {d_cpu64[k] / norm[k]:.3e}, |g| {norm[k]:.3e})" for k in worst)
+            + f"; global |g| {total:.3e}")
+        # per tensor, the card within 1e-3 of the CPU's gradient, or no
+        # further from the float64 gradient than 1e-3 of its norm plus twice
+        # the CPU float32 path's own distance from it, plus 1e-6 of the global
+        # norm (the bias of stem1's conv has a true gradient of zero: a
+        # GroupNorm of one channel per group removes it)
+        bad = [k for k in norm if rel[k] > 1e-3 and d_c64[k] > 1e-3 * norm[k]
+               + 2 * d_cpu64[k] + 1e-6 * total]
+        d_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+        log(f"  tensors over both limits: {bad}; loss card vs CPU rel {d_loss:.3e} "
+            f"(limit 1e-4)")
+        if bad or d_loss > 1e-4:
+            raise AssertionError("card gradients disagree with the CPU's")
+
+    def _fixed_batch_descends(self, datasets):
+        import torch
+
+        from crossloc_tpu_torch.train import TrainState, make_optimizer, train_step
+
+        model = self._model("cuda")
+        state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+        batch = self._train_batch(datasets, 2, "cuda", augment=False)
+        losses = [float(train_step(state, batch, "coord", "MLE")["loss"]) for _ in range(10)]
+        log(f"10 steps on one fixed batch (B=2, no augmentation): losses "
+            + ", ".join(f"{v:.2f}" for v in losses))
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not go down on a fixed batch")
+
+    def _step_time(self, datasets):
+        """One training step (augmentation of uint8 images, forward, loss,
+        backward, Adam) at B=TRAIN_BATCH, between CUDA events."""
+        import torch
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
+
+        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", "train_sim"),
+                               image_height=IMG_H).collate(range(TRAIN_BATCH))
+        wire = torch.from_numpy(data.images_to_wire(b["image"])).cuda()
+        labels, poses = torch.from_numpy(b["coord"]).cuda(), torch.from_numpy(b["pose"]).cuda()
+        focal = torch.tensor(float(b["focal"][0]), device="cuda")
+        draws = data.draw_augmentation(torch.Generator().manual_seed(0), TRAIN_BATCH).to("cuda")
+        out = {}
+        os.makedirs(self.out_dir, exist_ok=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            model = self._model("cuda", dtype)
+            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+
+            def step():
+                im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
+                                                         poses, focal, draws)
+                return train_step(state, TrainBatch(im, po, lab, fo, pp), "coord", "MLE")
+
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(step, iters=5, warmup=2)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            name = str(dtype)[6:]
+            out[name] = dict(ms=ms, img_s=1e3 * TRAIN_BATCH / ms, peak_gib=peak)
+            log(f"train step B={TRAIN_BATCH} {IMG_H}x{IMG_W} {name} on {self.device_name} "
+                f"({nvidia_smi_line()}): {ms:.2f} ms = {1e3 * TRAIN_BATCH / ms:.1f} img/s, "
+                f"peak memory {peak:.2f} GiB")
+            del model, state
+        with open(os.path.join(self.out_dir, "train.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), batch=TRAIN_BATCH,
+                           steps=out), f, indent=1)
+
     # -- extra phase, not in the default run ---------------------------------
     def phase_profile(self):
-        """Where the time of one image -> pose batch goes, by kernel
-        (torch.profiler), and the device's busy share of the wall time."""
+        """Where the time of one image -> pose batch and of one training step
+        goes, by kernel group (torch.profiler), and the device's busy share
+        of the wall time."""
+        self._profile_serve()
+        self._profile_train()
+
+    @staticmethod
+    def _kernel_groups(prof):
+        """(device busy ms, kernel count, {group: [launches, ms]}) of a trace."""
+        import torch
+
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        groups = {}
+        for e in kernels:
+            n = e.name.lower()
+            key = ("K1-bwd groupnorm" if "gnb_" in n
+                   else "K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize",
+                                                               "gn_apply", "gn_cluster"))
+                   else "conv" if any(k in n for k in ("fprop", "dgrad", "wgrad", "conv", "xmma",
+                                                      "cutlass", "implicit_gemm", "cudnn"))
+                   else "other")
+            g = groups.setdefault(key, [0, 0.0])
+            g[0] += 1
+            g[1] += e.time_range.elapsed_us() / 1e3
+        return sum(g[1] for g in groups.values()), len(kernels), groups
+
+    def _profile_train(self):
+        """One training step (augmentation, forward, loss, backward, Adam) at
+        B=TRAIN_BATCH, 480x720, f32 and bf16, on a seeded synthetic batch."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
+
+        B = TRAIN_BATCH
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        wire = torch.randint(0, 256, (B, IMG_H, IMG_W, 3), device="cuda", generator=gen,
+                             dtype=torch.uint8)
+        mean = torch.tensor(data.get_label_mean("urbanscape", "coord"), device="cuda")
+        labels = mean + 20 * torch.randn(B, IMG_H // 8, IMG_W // 8, 3, device="cuda",
+                                         generator=gen)
+        poses = torch.eye(4, device="cuda").repeat(B, 1, 1)
+        poses[:, :3, 3] = mean - torch.tensor([0.0, 0.0, 90.0], device="cuda")
+        focal = torch.tensor(480.0, device="cuda")
+        draws = data.draw_augmentation(torch.Generator().manual_seed(0), B).to("cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            model = self._model("cuda", dtype)
+            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+
+            def step():
+                im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
+                                                         poses, focal, draws)
+                return float(train_step(state, TrainBatch(im, po, lab, fo, pp), "coord",
+                                        "MLE")["loss"])
+
+            step(), step()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            busy, n, groups = self._kernel_groups(prof)
+            name = str(dtype)[6:]
+            log(f"profile train step {name} B={B} {IMG_H}x{IMG_W}: wall {wall:.2f} ms, device "
+                f"busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, {n} "
+                f"kernels; by group: " + ", ".join(
+                    f"{k} {v[0]} launches {v[1]:.2f} ms" for k, v in sorted(groups.items())))
+            with open(os.path.join(self.out_dir, f"profile_train_{name}.txt"), "w") as f:
+                f.write(f"{self.device_name} | {nvidia_smi_line()}\n")
+                f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+            del model, state
+
+    def _profile_serve(self):
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -493,22 +922,10 @@ class Smoke:
                 localize(images, focal, generator=gen)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
-            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-            groups = {}
-            for e in kernels:
-                n = e.name.lower()
-                key = ("K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize", "gn_apply",
-                                                               "gn_cluster"))
-                       else "conv" if any(k in n for k in ("fprop", "conv", "xmma", "cutlass",
-                                                          "implicit_gemm", "cudnn"))
-                       else "other (solver, residual adds, copies)")
-                g = groups.setdefault(key, [0, 0.0])
-                g[0] += 1
-                g[1] += e.time_range.elapsed_us() / 1e3
+            busy, n_kernels, groups = self._kernel_groups(prof)
             log(f"profile {str(dtype)[6:]} B={BATCH} {IMG_H}x{IMG_W} net+solver: wall {wall:.2f} ms, "
                 f"device busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, "
-                f"{len(kernels)} kernels; by group: "
+                f"{n_kernels} kernels; by group: "
                 + ", ".join(f"{k} {v[0]} launches {v[1]:.2f} ms" for k, v in sorted(groups.items())))
             os.makedirs(self.out_dir, exist_ok=True)
             with open(os.path.join(self.out_dir, f"profile_{str(dtype)[6:]}.txt"), "w") as f:
@@ -522,7 +939,7 @@ class Smoke:
         return json.dumps({"kernels": [{k: v[k] for k in keys} for v in self.kernels.values()]})
 
 
-PHASES = ("card", "kernels", "forward", "serve")
+PHASES = ("card", "kernels", "forward", "serve", "train")
 EXTRA_PHASES = ("profile",)
 
 

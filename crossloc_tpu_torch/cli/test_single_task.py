@@ -23,8 +23,8 @@ import torch
 
 from .. import compat, eval as evaluation, models, ransac
 from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
-from ..device import resolve_device
 from ..losses import get_nodata_value
+from .common import select_device_from_env
 
 _TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
 _PARALLEL_TODO = "--num_devices > 1 is ROADMAP queue 1, item 13 (parallel)"
@@ -190,7 +190,7 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
         raise NotImplementedError(_PARALLEL_TODO)
     if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
         raise NotImplementedError(f"scene={scene}: the DSAC*-style vanilla net is not ported")
-    device = resolve_device(getattr(opt, "device", None))
+    device = select_device_from_env(getattr(opt, "device", None))
     nodata_value = get_nodata_value(scene)
     model = models.build_network(
         task, uncertainty=uncertainty, tiny=tiny, grayscale=grayscale, fullsize=fullsize,

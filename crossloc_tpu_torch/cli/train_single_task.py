@@ -1,0 +1,292 @@
+"""Train a single-task network (encoder pretraining) on the card unless
+`--device cpu`.
+
+    python -m crossloc_tpu_torch.cli.train_single_task urbanscape --task coord \
+        --uncertainty MLE --batch_size 12 --learningrate 2e-4 --auto_resume
+
+Flags, output-directory names, `output.log` lines, the `model.net` and
+`ckpt_iter_*.net` cadence, `FLAG_training_done.nodata` and the resume
+bookkeeping are those of `crossloc_tpu/cli/train_single_task.py`; `--device`
+is added (default cuda). A step moves uint8 images to the device, augments
+them there with draws from a generator keyed by (epoch, batch), so that a
+resumed run draws as an uninterrupted one, and runs forward, coord loss,
+backward (K1's backward kernel on the card) and Adam. `--bf16` runs the
+convs and K1 in bfloat16; parameters, norm statistics, outputs and the loss
+stay float32.
+
+Two departures from the JAX CLI, both fixes of its defects (ROADMAP queue
+3): a log-parse resume sets the LR schedule's clock to the resumed step
+(R5: the JAX CLI restarts optax's count at 0), and with
+`--snapshot_every_epochs N` the resume epoch is floored to the last written
+snapshot (R3).
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import compat, models
+from ..data import (
+    AugmentConfig,
+    augment_batch,
+    device_prefetch,
+    draw_augmentation,
+    images_from_wire,
+    images_to_wire,
+)
+from ..losses import CoordLossConfig, get_nodata_value
+from ..train import CheckpointManager, TrainBatch, TrainState, make_optimizer, train_step
+from ..utils import config_log, read_training_log
+from . import common
+
+_TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
+_FULLSIZE_TODO = "--fullsize (DUC output) is ROADMAP queue 1, item 11 (other tasks and DUC)"
+_E2E_TODO = "--e2e_pose_loss is ROADMAP queue 1, item 12 (DSAC e2e)"
+_PARALLEL_TODO = "--num_devices > 1, --zero and --ckpt_backend orbax are ROADMAP queue 1, item 13"
+
+
+def config_parser(description="Initialize a scene coordinate regression network."):
+    """The JAX CLI's flags (those of the reference plus its extensions), and `--device`."""
+    parser = argparse.ArgumentParser(
+        description=description, formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    parser.add_argument("scene", help="name of a scene in the dataset folder")
+    parser.add_argument("--batch_size", type=int, default=4)
+    parser.add_argument("--grayscale", "-grayscale", action="store_true")
+    parser.add_argument("--real_data_domain", type=str, default="in_place")
+    parser.add_argument("--real_data_chunk", type=float, default=1.0)
+    parser.add_argument("--real_only", action="store_true")
+    parser.add_argument("--sim_data_chunk", type=float, default=1.0)
+    parser.add_argument("--task", type=str, required=True)
+    parser.add_argument("--epoch_plus", "-epoch_plus", action="store_true")
+    parser.add_argument("--network_in", type=str, default=None)
+    parser.add_argument("--tiny", "-tiny", action="store_true")
+    parser.add_argument("--fullsize", "-fullsize", action="store_true")
+    parser.add_argument("--epochs", "-e", type=int, default=50)
+    parser.add_argument("--learningrate", "-lr", type=float, default=0.0002)
+    parser.add_argument("--no_lr_scheduling", action="store_true")
+    parser.add_argument("--session", "-sid", default="")
+    parser.add_argument("--ckpt_dir", type=str, default="")
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--inittolerance", "-itol", type=float, default=50.0)
+    parser.add_argument("--mindepth", "-mind", type=float, default=0.1)
+    parser.add_argument("--softclamp", "-sc", type=float, default=100)
+    parser.add_argument("--hardclamp", "-hc", type=float, default=1000)
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--uncertainty", "-uncertainty", default=None, type=str)
+    parser.add_argument("--datasets_dir", type=str, default="./datasets",
+                        help="dataset root directory")
+    parser.add_argument("--image_height", type=int, default=480,
+                        help="standard input image height")
+    parser.add_argument("--num_devices", type=int, default=1,
+                        help="data-parallel device count (not in the port yet; must be 1)")
+    parser.add_argument("--zero", action="store_true",
+                        help="sharded parameters and Adam moments (not in the port yet)")
+    parser.add_argument("--e2e_pose_loss", action="store_true",
+                        help="DSAC end-to-end pose loss (not in the port yet)")
+    parser.add_argument("--e2e_warmup_epochs", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 convs and GroupNorm; params, norm statistics, outputs "
+                             "and the loss stay float32; adds a '-bf16' naming token")
+    parser.add_argument("--stem_s2d", type=str, default="auto", choices=["auto", "on", "off"],
+                        help="accepted for the JAX CLI's flag surface; the port computes the "
+                             "standard stems (the same function)")
+    parser.add_argument("--ckpt_backend", type=str, default="none",
+                        choices=["none", "msgpack", "orbax"],
+                        help="full-state checkpoints (weights, Adam, step) beside each epoch's "
+                             "snapshot for an exact resume; 'msgpack' writes the port's "
+                             "torch.save file")
+    parser.add_argument("--snapshot_every_epochs", type=int, default=1,
+                        help="write the per-epoch model.net every N epochs (the final epoch "
+                             "always writes); a resume restarts from the last written one")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device: cuda (default; raises without CUDA) or cpu")
+    return parser
+
+
+def normalize_opt(opt):
+    if isinstance(opt.uncertainty, str):
+        if opt.uncertainty.lower() == "none":
+            opt.uncertainty = None
+        elif opt.uncertainty.lower() == "mle":
+            opt.uncertainty = "MLE"
+    if opt.uncertainty not in (None, "MLE"):
+        raise ValueError(f"--uncertainty {opt.uncertainty} is not supported!")
+    if opt.real_data_domain not in ("in_place", "out_of_place"):
+        raise ValueError(f"--real_data_domain {opt.real_data_domain} is not supported!")
+    if opt.real_only and opt.sim_data_chunk != 0:
+        raise ValueError("--real_only needs --sim_data_chunk 0")
+    return opt
+
+
+def _reject_unported(opt) -> None:
+    if opt.task != "coord":
+        raise NotImplementedError(_TASK_TODO)
+    if opt.fullsize:
+        raise NotImplementedError(_FULLSIZE_TODO)
+    if opt.e2e_pose_loss:
+        raise NotImplementedError(_E2E_TODO)
+    if opt.num_devices > 1 or opt.zero or opt.ckpt_backend == "orbax":
+        raise NotImplementedError(_PARALLEL_TODO)
+
+
+def get_output_path(opt) -> str:
+    """output/<name> under the working directory, the name from the flags."""
+    name = compat.train_output_name(
+        opt.scene, opt.task, session=opt.session, grayscale=opt.grayscale,
+        uncertainty=opt.uncertainty, fullsize=opt.fullsize, epochs=opt.epochs,
+        learning_rate=opt.learningrate, real_data_chunk=opt.real_data_chunk,
+        sim_data_chunk=opt.sim_data_chunk, real_data_domain=opt.real_data_domain,
+        real_only=opt.real_only, tiny=opt.tiny, network_in=opt.network_in,
+        debug=opt.debug, e2e=opt.e2e_pose_loss, bf16=opt.bf16)
+    return os.path.abspath(os.path.join("output", name))
+
+
+def augment_generator(epoch: int, batch_idx: int) -> torch.Generator:
+    """CPU generator of one batch's augmentation draws, keyed by (epoch, batch)."""
+    seed = int(np.random.SeedSequence([2021, epoch, batch_idx]).generate_state(1)[0])
+    return torch.Generator().manual_seed(seed)
+
+
+def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.device) -> TrainState:
+    """The training loop; returns the final state."""
+    nodata_value = get_nodata_value(opt.scene)
+    trainset, loader, mean = common.build_train_loader(
+        opt.scene, opt.task, opt.grayscale, opt.real_data_domain, opt.real_data_chunk,
+        opt.sim_data_chunk, opt.fullsize, opt.batch_size, opt.real_only, opt.datasets_dir,
+        opt.image_height)
+    if len(loader) == 0:
+        raise ValueError(f"batch_size {opt.batch_size} exceeds dataset size {len(trainset)}: "
+                         "no full batch can be formed (drop_last); reduce --batch_size")
+    steps_per_epoch = len(loader)
+
+    model = common.build_network(opt.scene, opt.task, opt.tiny, opt.grayscale, opt.uncertainty,
+                                 opt.fullsize, mean,
+                                 dtype=torch.bfloat16 if opt.bf16 else torch.float32)
+    models.init_weights(model, torch.Generator().manual_seed(2021))
+    # a run from --network_in snapshots to model_{auto_,epoch_plus_}resume.net
+    # and writes the weights it loaded at once; a fresh run to model.net
+    if opt.network_in is not None:
+        compat.load_net(opt.network_in, model)
+        logging.info("Successfully loaded %s." % opt.network_in)
+        if opt.auto_resume:
+            model_path = os.path.join(output_dir, "model_auto_resume.net")
+        elif opt.epoch_plus:
+            model_path = os.path.join(output_dir, "model_epoch_plus_resume.net")
+        else:
+            model_path = os.path.join(output_dir, "model_resume.net")
+        compat.save_net(model_path, model)
+    else:
+        model_path = os.path.join(output_dir, "model.net")
+    model.to(device)
+    if device.type == "cuda":
+        model.to(memory_format=torch.channels_last)
+    state = TrainState(model, make_optimizer(model.parameters(), opt.learningrate,
+                                             steps_per_epoch, opt.no_lr_scheduling))
+    save_period = 5  # epochs between ckpt_iter_*.net files (coord)
+
+    aug_cfg = AugmentConfig(grayscale=opt.grayscale, nodata_value=nodata_value)
+    coord_cfg = CoordLossConfig(min_depth=opt.mindepth, soft_clamp=opt.softclamp,
+                                hard_clamp=opt.hardclamp, init_tolerance=opt.inittolerance,
+                                nodata_value=nodata_value)
+    manager = None
+    if opt.ckpt_backend != "none":
+        manager = CheckpointManager(output_dir, backend=opt.ckpt_backend)
+    snap_every = max(1, opt.snapshot_every_epochs)
+
+    if opt.auto_resume or opt.epoch_plus:
+        iteration, start_epoch = read_training_log(
+            os.path.join(os.path.dirname(opt.network_in), "output.log"), len(trainset))
+        # R3: the weights loaded are those of the last written snapshot
+        start_epoch = start_epoch // snap_every * snap_every
+        save_counter = (start_epoch + 1) * len(trainset)
+        epoch_de_facto = start_epoch
+        last_ckpt_iteration = (start_epoch // 5 * 5) * len(trainset)
+        state.step = start_epoch * steps_per_epoch  # R5: the LR follows the step
+        if manager is not None:
+            src_dir = os.path.dirname(os.path.abspath(opt.network_in))
+            src = manager if src_dir == os.path.abspath(output_dir) else CheckpointManager(
+                src_dir, backend=opt.ckpt_backend)
+            if src.restore_latest(state) is not None:
+                # a .state is written at an epoch's end: resume after that epoch
+                start_epoch = state.step // steps_per_epoch
+                save_counter = (start_epoch + 1) * len(trainset)
+                epoch_de_facto = start_epoch
+                logging.info("Restored full train state (step %d): exact optimizer resume from "
+                             "epoch %d.", state.step, start_epoch)
+            else:
+                logging.info("No full-state checkpoint found; log-parse resume (optimizer "
+                             "state reset).")
+    else:
+        iteration, start_epoch, save_counter, epoch_de_facto, last_ckpt_iteration = 0, 0, 0, 0, 0
+
+    for epoch in range(start_epoch, opt.epochs):
+        logging.info("=== Epoch: %d ======================================" % epoch)
+        loader.set_epoch(epoch)
+        wire = (dict(b, image=images_to_wire(b["image"])) for b in loader)
+        for batch_idx, batch in enumerate(
+                device_prefetch(wire, device, keys=("image", "pose", opt.task))):
+            start_time = time.time()
+            B = batch["image"].shape[0]
+            draws = draw_augmentation(augment_generator(epoch, batch_idx), B, aug_cfg)
+            focal = torch.tensor(float(batch["focal"][0]), device=device)
+            images, labels, poses, focal, pp_shift = augment_batch(
+                images_from_wire(batch["image"]), batch[opt.task], batch["pose"], focal,
+                draws.to(device), aug_cfg)
+            metrics = train_step(state, TrainBatch(images, poses, labels, focal, pp_shift),
+                                 opt.task, opt.uncertainty, nodata_value, coord_cfg)
+            loss = float(metrics["loss"])
+            valid_rate = float(metrics["valid_rate"])
+            time_avg = (time.time() - start_time) / B
+            iteration += B
+            logging.info(
+                "Iteration: %7d, Epoch: %3d, Total loss: %.2f, Valid: %.1f%%, Avg Time: %.3fs"
+                % (iteration, epoch, loss, valid_rate * 100, time_avg))
+
+            # the reference's de-facto-epoch snapshot (it can fire mid-epoch)
+            # and the periodic ckpt_iter file; both weights only
+            fire_snapshot = iteration > save_counter
+            fire_ckpt = (iteration > last_ckpt_iteration + save_period * len(trainset)
+                         or last_ckpt_iteration == 0)
+            if fire_snapshot:
+                if (epoch_de_facto + 1) % snap_every == 0:
+                    logging.info("Saving snapshot of the network to %s." % model_path)
+                    compat.save_net(model_path, model)
+                save_counter = iteration + len(trainset)
+                epoch_de_facto += 1
+            if fire_ckpt:
+                compat.save_net(os.path.join(
+                    ckpt_output_dir, "ckpt_iter_{:07d}.net".format(iteration)), model)
+                last_ckpt_iteration = iteration
+
+        # the epoch's end: the full state is exact here, and only here
+        if (epoch + 1) % snap_every == 0 or epoch == opt.epochs - 1:
+            logging.info("Saving snapshot of the network to %s." % model_path)
+            compat.save_net(model_path, model)
+        if manager is not None:
+            manager.save(state)
+
+    logging.info("Done without errors.")
+    for d in (output_dir, ckpt_output_dir):
+        with open(os.path.join(d, "FLAG_training_done.nodata"), "w") as f:
+            f.write("")
+    return state
+
+
+def main(argv=None) -> str:
+    """Parse, set up the output directory and log, train; returns the output
+    directory."""
+    opt = normalize_opt(config_parser().parse_args(argv))
+    _reject_unported(opt)
+    device = common.select_device_from_env(opt.device)
+    output_dir, ckpt_output_dir = config_log(opt, get_output_path(opt))
+    run_training(opt, output_dir, ckpt_output_dir, device)
+    return output_dir
+
+
+if __name__ == "__main__":
+    main()

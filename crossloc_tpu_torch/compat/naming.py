@@ -1,9 +1,56 @@
-"""Output-folder metadata decoding (counterpart of
-`crossloc_tpu/compat/naming.py::read_meta_info`), used by the eval CLI's
-`--search_dir`."""
+"""Output-directory naming grammar and its decoding (counterpart of
+`crossloc_tpu/compat/naming.py`): the training CLI encodes its flags into
+the output directory's name, the eval CLI's `--search_dir` decodes them, and
+checkpoint-selection tooling matches the same strings."""
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
+
+
+def train_output_name(scene: str, task: str, session: str = "", grayscale: bool = False,
+                      uncertainty: Optional[str] = None, fullsize: bool = False,
+                      epochs: int = 50, learning_rate: float = 2e-4,
+                      real_data_chunk: float = 1.0, sim_data_chunk: float = 1.0,
+                      real_data_domain: str = "in_place", real_only: bool = False,
+                      tiny: bool = False, network_in: Optional[str] = None, debug: bool = False,
+                      e2e: bool = False, bf16: bool = False) -> str:
+    """The reference training CLI's output-directory name; `e2e` and `bf16`
+    add "-e2e" and "-bf16" after the uncertainty token, as in the JAX
+    package."""
+    name = f"{scene}-{task}"
+    if session:
+        name += "-s" + session
+    if grayscale:
+        name += "-gray"
+    name += "-no_unc" if uncertainty is None else f"-unc-{uncertainty}"
+    if e2e:
+        name += "-e2e"
+    if bf16:
+        name += "-bf16"
+    if fullsize:
+        name += "-fullsize"
+    lr_fmt = "-e{:d}-lr{:.4f}" if learning_rate >= 1e-4 else "-e{:d}-lr{:.6f}"
+    name += lr_fmt.format(epochs, learning_rate)
+    if real_data_chunk == 0.0:
+        if sim_data_chunk <= 0:
+            raise ValueError("one of real/sim chunks must be positive")
+        name += "-sim_only" + "-sc{:.2f}".format(sim_data_chunk)
+    else:
+        name += "-real_only" if real_only else "-pairs"
+        if real_data_domain == "in_place":
+            name += "-ip"
+        elif real_data_domain == "out_of_place":
+            name += "-oop"
+        else:
+            raise NotImplementedError(real_data_domain)
+        name += "-rc{:.2f}".format(real_data_chunk)
+    if tiny:
+        name += "-tiny"
+    if network_in is not None:
+        name += "-finetune"
+    if debug:
+        name += "-DEBUG"
+    return name
 
 
 def read_meta_info(folder_name: str) -> Tuple[str, bool, str, List[str], bool, bool, Optional[str]]:

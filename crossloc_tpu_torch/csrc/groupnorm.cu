@@ -54,6 +54,28 @@
 // Both designs centre before the scale, which keeps the precision of the
 // plain version when |mu| >> std, and neither forms E[x^2] - mu^2 (the TPU
 // kernel's one-pass formula, which can go negative through cancellation).
+// Under autograd both write (mu, rstd) per (image, group) to `stats` (a null
+// pointer skips it), which the backward reads instead of reading x again.
+//
+// Backward (gnb_* kernels; the TPU package has none: its _bwd,
+// pallas_groupnorm.py:141, recomputes through the plain reference with
+// jax.vjp). With xhat = (x - mu) * r, pre = (x - mu) * (gamma * r) + beta
+// computed as the forward computes it (so the ReLU mask m = [pre > 0] has
+// the forward's bits; a tie pre == 0 gives 0, as torch.relu does), and
+// gh = dy * m:
+//   dbeta_c = sum gh, dgamma_c = sum gh * xhat   (over the batch and H*W)
+//   dx = r * (gamma * gh - mean_g(gamma * gh) - xhat * mean_g(gamma * gh * xhat))
+// Bound: memory bandwidth, as the forward; the least traffic is one read of
+// x and dy and one write of dx. This first design reads x and dy twice:
+//   (a) gnb_partials: per (image, chunk of H*W rows), per channel, fp32 sums
+//       of gh and gh * xhat into scratch [B, chunks, 2, C];
+//   (b) gnb_image_sums: per (image, channel), the chunks summed in order;
+//   (c) gnb_finalize: per (image, group) the two group means, folded into a
+//       per-channel table [B, 5, C] for (d); one more row of blocks sums
+//       dgamma and dbeta over the images in order;
+//   (d) gnb_apply: dx over contiguous NHWC, 16-byte loads and stores.
+// No float atomics: every sum has a fixed order, so dx, dgamma and dbeta
+// have the same bits from run to run.
 //
 // Plain C interface (bound with ctypes). The caller allocates y (and, for the
 // three-pass design, the scratch); each function launches on the given
@@ -201,7 +223,8 @@ constexpr int kFinalizeThreads = 256;
 
 __global__ void gn_finalize_kernel(const float* __restrict__ part, const float* __restrict__ gamma,
                                    const float* __restrict__ beta, float* __restrict__ affine,
-                                   int HW, int C, int G, int chunk_rows, int nchunks, float eps) {
+                                   float* __restrict__ stats, int HW, int C, int G, int chunk_rows,
+                                   int nchunks, float eps) {
   const int g = blockIdx.x;
   const int b = blockIdx.y;
   const int gs = C / G;
@@ -236,6 +259,10 @@ __global__ void gn_finalize_kernel(const float* __restrict__ part, const float* 
     const float var = fmaxf(sm2[0] / sn[0], 0.f);
     s_mu = smean[0];
     s_rstd = rsqrtf(var + eps);
+    if (stats != nullptr) {
+      stats[((size_t)b * G + g) * 2] = s_mu;
+      stats[((size_t)b * G + g) * 2 + 1] = s_rstd;
+    }
   }
   __syncthreads();
   float* a_out = affine + (size_t)b * 3 * C;
@@ -278,8 +305,8 @@ __global__ void gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
 
 template <typename T>
 cudaError_t launch_three_pass(const void* x, void* y, const float* gamma, const float* beta,
-                              float* part, float* affine, int B, int HW, int C, int G,
-                              int chunk_rows, int nchunks, float eps, int relu,
+                              float* part, float* affine, float* stats, int B, int HW, int C,
+                              int G, int chunk_rows, int nchunks, float eps, int relu,
                               cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   const int tpr = C / V;
@@ -292,7 +319,7 @@ cudaError_t launch_three_pass(const void* x, void* y, const float* gamma, const 
   if (err != cudaSuccess) return err;
 
   gn_finalize_kernel<<<dim3(G, B), kFinalizeThreads, 0, stream>>>(
-      part, gamma, beta, affine, HW, C, G, chunk_rows, nchunks, eps);
+      part, gamma, beta, affine, stats, HW, C, G, chunk_rows, nchunks, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -423,9 +450,9 @@ __device__ __forceinline__ void block_group_sums(float (&acc)[NA][V], float* red
 template <typename T>
 __global__ void __launch_bounds__(kClusterThreads)
     gn_cluster_kernel(const __grid_constant__ CUtensorMap xmap, T* __restrict__ y,
-                      const float* __restrict__ gamma, const float* __restrict__ beta, int HW,
-                      int C, int gs, int cb, int rows_per_cta, int box_rows, int nbox, float eps,
-                      int relu) {
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      float* __restrict__ stats, int HW, int C, int gs, int cb,
+                      int rows_per_cta, int box_rows, int nbox, float eps, int relu) {
   constexpr int V = Vec<T>::N;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -545,6 +572,11 @@ __global__ void __launch_bounds__(kClusterThreads)
     }
     g_mu[tid] = mean;
     g_rstd[tid] = rsqrtf(fmaxf(m2 / n, 0.f) + eps);
+    if (stats != nullptr && rank == 0) {  // every rank holds the same bits
+      const size_t at = ((size_t)b * (C / gs) + c0 / gs + tid) * 2;
+      stats[at] = mean;
+      stats[at + 1] = g_rstd[tid];
+    }
   }
   __syncthreads();
 
@@ -630,9 +662,9 @@ struct Checked {
 constexpr int kMaxChecked = 256;
 
 template <typename T>
-int launch_cluster(const void* x, void* y, const float* gamma, const float* beta, int B, int HW,
-                   int C, int G, int cb, int cs, int rows_per_cta, int box_rows, int nbox,
-                   int threads, int smem, float eps, int relu, cudaStream_t stream) {
+int launch_cluster(const void* x, void* y, const float* gamma, const float* beta, float* stats,
+                   int B, int HW, int C, int G, int cb, int cs, int rows_per_cta, int box_rows,
+                   int nbox, int threads, int smem, float eps, int relu, cudaStream_t stream) {
   constexpr int V = Vec<T>::N;
   const int gs = C / G;
   if (cluster_smem_bytes(sizeof(T), V, cb, gs, box_rows, nbox, threads, cs) > (size_t)smem ||
@@ -680,39 +712,285 @@ int launch_cluster(const void* x, void* y, const float* gamma, const float* beta
   CUtensorMap xmap;
   const int e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows);
   if (e != 0) return e;
-  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T>, xmap, static_cast<T*>(y), gamma, beta, HW,
-                           C, gs, cb, rows_per_cta, box_rows, nbox, eps, relu);
+  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T>, xmap, static_cast<T*>(y), gamma, beta,
+                           stats, HW, C, gs, cb, rows_per_cta, box_rows, nbox, eps, relu);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
+
+// (a) One block per (chunk of rows, image), laid out like gn_stats_kernel:
+// tpr threads across a row of C channels, rpi rows side by side. Writes
+// part[b, chunk, 0, c] = sum gh and part[b, chunk, 1, c] = sum gh * xhat.
+template <typename T>
+__global__ void gnb_partials_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ beta,
+                                    const float* __restrict__ stats, float* __restrict__ part,
+                                    int HW, int C, int G, int chunk_rows, int nchunks, int relu) {
+  constexpr int V = Vec<T>::N;
+  const int tpr = C / V;
+  const int rpi = blockDim.x / tpr;
+  const int cv = threadIdx.x % tpr;
+  const int slot = threadIdx.x / tpr;
+  const int chunk = blockIdx.x;
+  const int b = blockIdx.y;
+  const int gs = C / G;
+  const int row0 = chunk * chunk_rows;
+  const int row1 = min(row0 + chunk_rows, HW);
+
+  float mu[V], r[V], a[V], be[V], s1[V], s2[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = cv * V + k;
+    const float* st = stats + ((size_t)b * G + c / gs) * 2;
+    mu[k] = st[0];
+    r[k] = st[1];
+    a[k] = gamma[c] * r[k];  // the forward's product, so pre has its bits
+    be[k] = beta[c];
+    s1[k] = s2[k] = 0.f;
+  }
+  const size_t base = (size_t)b * HW * C + (size_t)cv * V;
+  for (int row = row0 + slot; row < row1; row += rpi) {
+    float v[V], g[V];
+    load_vec(x + base + (size_t)row * C, v);
+    load_vec(dy + base + (size_t)row * C, g);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = v[k] - mu[k];
+      const float gh = (relu && !(fmaf(d, a[k], be[k]) > 0.f)) ? 0.f : g[k];
+      s1[k] += gh;
+      s2[k] = fmaf(gh, d * r[k], s2[k]);
+    }
+  }
+
+  float* out = part + ((size_t)b * nchunks + chunk) * 2 * C + (size_t)cv * V;
+  if (rpi == 1) {
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      out[k] = s1[k];
+      out[C + k] = s2[k];
+    }
+    return;
+  }
+  // rpi > 1 only when tpr <= 128, so blockDim.x <= 256: 256 * 2 * 8 * 4 B = 16 KB
+  extern __shared__ float sh[];
+  float* sh1 = sh;
+  float* sh2 = sh + blockDim.x * V;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    sh1[threadIdx.x * V + k] = s1[k];
+    sh2[threadIdx.x * V + k] = s2[k];
+  }
+  __syncthreads();
+  if (slot != 0) return;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float t1 = s1[k], t2 = s2[k];
+    for (int s = 1; s < rpi; ++s) {  // slots in order
+      const int t = s * tpr + cv;
+      t1 += sh1[t * V + k];
+      t2 += sh2[t * V + k];
+    }
+    out[k] = t1;
+    out[C + k] = t2;
+  }
+}
+
+// (b) sums[b, j, c] = sum over chunks of part[b, chunk, j, c]: blocks of
+// 32 channels x 8 chunk lanes, each lane's chunks in order, then the lanes
+// in order.
+constexpr int kSumLanes = 8;
+
+__global__ void gnb_image_sums_kernel(const float* __restrict__ part, float* __restrict__ sums,
+                                      int C, int nchunks) {
+  __shared__ float tile[2][kSumLanes][32];
+  const int c = blockIdx.x * 32 + threadIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.y;
+  float t1 = 0.f, t2 = 0.f;
+  if (c < C) {
+    for (int j = lane; j < nchunks; j += kSumLanes) {
+      const float* p = part + ((size_t)b * nchunks + j) * 2 * C;
+      t1 += p[c];
+      t2 += p[C + c];
+    }
+  }
+  tile[0][lane][threadIdx.x] = t1;
+  tile[1][lane][threadIdx.x] = t2;
+  __syncthreads();
+  if (lane == 0 && c < C) {
+    for (int l = 1; l < kSumLanes; ++l) {
+      t1 += tile[0][l][threadIdx.x];
+      t2 += tile[1][l][threadIdx.x];
+    }
+    sums[(size_t)b * 2 * C + c] = t1;
+    sums[(size_t)b * 2 * C + C + c] = t2;
+  }
+}
+
+// (c) One warp per (group, image) for blockIdx.y < B: the two group means
+// and the per-channel table of (d): mu, gamma * r, beta, r * c1, r^2 * c2,
+// where dx = (gamma * r) * gh - r * c1 - (x - mu) * r^2 * c2. Blocks with
+// blockIdx.y == B sum dgamma and dbeta of the group's channels over the
+// images in order.
+__global__ void gnb_finalize_kernel(const float* __restrict__ sums,
+                                    const float* __restrict__ gamma,
+                                    const float* __restrict__ beta,
+                                    const float* __restrict__ stats, float* __restrict__ table,
+                                    float* __restrict__ dgamma, float* __restrict__ dbeta, int B,
+                                    int HW, int C, int G) {
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x;
+  const int gs = C / G;
+  if (b == B) {
+    for (int c = g * gs + lane; c < (g + 1) * gs; c += 32) {
+      float db = 0.f, dg = 0.f;
+      for (int i = 0; i < B; ++i) {
+        db += sums[(size_t)i * 2 * C + c];
+        dg += sums[(size_t)i * 2 * C + C + c];
+      }
+      dbeta[c] = db;
+      dgamma[c] = dg;
+    }
+    return;
+  }
+  const float* s = sums + (size_t)b * 2 * C;
+  float t1 = 0.f, t2 = 0.f;
+  for (int c = g * gs + lane; c < (g + 1) * gs; c += 32) {
+    t1 = fmaf(gamma[c], s[c], t1);
+    t2 = fmaf(gamma[c], s[C + c], t2);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    t1 += __shfl_xor_sync(0xffffffffu, t1, o);
+    t2 += __shfl_xor_sync(0xffffffffu, t2, o);
+  }
+  const float n = (float)HW * (float)gs;
+  const float mu = stats[((size_t)b * G + g) * 2];
+  const float r = stats[((size_t)b * G + g) * 2 + 1];
+  const float c1 = t1 / n, c2 = t2 / n;
+  float* tb = table + (size_t)b * 5 * C;
+  for (int c = g * gs + lane; c < (g + 1) * gs; c += 32) {
+    tb[c] = mu;
+    tb[C + c] = gamma[c] * r;
+    tb[2 * C + c] = beta[c];
+    tb[3 * C + c] = r * c1;
+    tb[4 * C + c] = r * r * c2;
+  }
+}
+
+// (d) dx over contiguous NHWC, V elements a thread, as gn_apply_kernel.
+template <typename T>
+__global__ void gnb_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                 T* __restrict__ dx, const float* __restrict__ table, int HWC,
+                                 int C, int relu) {
+  constexpr int V = Vec<T>::N;
+  const int b = blockIdx.y;
+  const int nvec = HWC / V;
+  const size_t off = (size_t)b * HWC;
+  const float* tb = table + (size_t)b * 5 * C;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < nvec; i += gridDim.x * blockDim.x) {
+    const int e = i * V;
+    const int c = e % C;
+    float v[V], g[V], t[5][V];
+    load_vec(x + off + e, v);
+    load_vec(dy + off + e, g);
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+#pragma unroll
+      for (int k = 0; k < V; k += 4) load_vec(tb + j * C + c + k, t[j] + k);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = v[k] - t[0][k];
+      const float gh = (relu && !(fmaf(d, t[1][k], t[2][k]) > 0.f)) ? 0.f : g[k];
+      v[k] = fmaf(t[1][k], gh, -fmaf(d, t[4][k], t[3][k]));
+    }
+    store_vec(dx + off + e, v);
+  }
+}
+
+template <typename T>
+cudaError_t launch_backward(const void* x, const void* dy, const float* gamma, const float* beta,
+                            const float* stats, void* dx, float* dgamma, float* dbeta,
+                            float* part, float* sums, float* table, int B, int HW, int C, int G,
+                            int chunk_rows, int nchunks, int relu, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int tpr = C / V;
+  const int rpi = tpr >= 256 ? 1 : 256 / tpr;
+  const int threads = tpr * rpi;
+  const size_t shmem = rpi > 1 ? (size_t)threads * 2 * V * sizeof(float) : 0;
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  gnb_partials_kernel<T><<<dim3(nchunks, B), threads, shmem, stream>>>(
+      xt, dyt, gamma, beta, stats, part, HW, C, G, chunk_rows, nchunks, relu);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  gnb_image_sums_kernel<<<dim3((C + 31) / 32, B), dim3(32, kSumLanes), 0, stream>>>(
+      part, sums, C, nchunks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  gnb_finalize_kernel<<<dim3(G, B + 1), 32, 0, stream>>>(sums, gamma, beta, stats, table, dgamma,
+                                                          dbeta, B, HW, C, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int HWC = HW * C;
+  int blocks = (HWC / V + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  gnb_apply_kernel<T><<<dim3(blocks, B), 256, 0, stream>>>(xt, dyt, static_cast<T*>(dx), table,
+                                                            HWC, C, relu);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int crossloc_gn_forward(const void* x, void* y, const float* gamma, const float* beta,
-                                   float* part, float* affine, int B, int HW, int C, int G,
-                                   int chunk_rows, int nchunks, float eps, int relu, int is_bf16,
-                                   void* stream) {
+                                   float* part, float* affine, float* stats, int B, int HW, int C,
+                                   int G, int chunk_rows, int nchunks, float eps, int relu,
+                                   int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_three_pass<__nv_bfloat16>(x, y, gamma, beta, part, affine, B, HW, C, G,
-                                                 chunk_rows, nchunks, eps, relu, s)
-              : launch_three_pass<float>(x, y, gamma, beta, part, affine, B, HW, C, G,
+      is_bf16 ? launch_three_pass<__nv_bfloat16>(x, y, gamma, beta, part, affine, stats, B, HW,
+                                                 C, G, chunk_rows, nchunks, eps, relu, s)
+              : launch_three_pass<float>(x, y, gamma, beta, part, affine, stats, B, HW, C, G,
                                          chunk_rows, nchunks, eps, relu, s);
   return static_cast<int>(err);
 }
 
 extern "C" int crossloc_gn_cluster_forward(const void* x, void* y, const float* gamma,
-                                           const float* beta, int B, int HW, int C, int G, int cb,
-                                           int cluster, int rows_per_cta, int box_rows, int nbox,
-                                           int threads, int smem, float eps, int relu,
-                                           int is_bf16, void* stream) {
+                                           const float* beta, float* stats, int B, int HW, int C,
+                                           int G, int cb, int cluster, int rows_per_cta,
+                                           int box_rows, int nbox, int threads, int smem,
+                                           float eps, int relu, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_cluster<__nv_bfloat16>(x, y, gamma, beta, B, HW, C, G, cb, cluster,
-                                                 rows_per_cta, box_rows, nbox, threads, smem,
-                                                 eps, relu, s)
-                 : launch_cluster<float>(x, y, gamma, beta, B, HW, C, G, cb, cluster,
+  return is_bf16 ? launch_cluster<__nv_bfloat16>(x, y, gamma, beta, stats, B, HW, C, G, cb,
+                                                 cluster, rows_per_cta, box_rows, nbox, threads,
+                                                 smem, eps, relu, s)
+                 : launch_cluster<float>(x, y, gamma, beta, stats, B, HW, C, G, cb, cluster,
                                          rows_per_cta, box_rows, nbox, threads, smem, eps, relu,
                                          s);
+}
+
+extern "C" int crossloc_gn_backward(const void* x, const void* dy, const float* gamma,
+                                    const float* beta, const float* stats, void* dx,
+                                    float* dgamma, float* dbeta, float* part, float* sums,
+                                    float* table, int B, int HW, int C, int G, int chunk_rows,
+                                    int nchunks, int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_backward<__nv_bfloat16>(x, dy, gamma, beta, stats, dx, dgamma, dbeta,
+                                               part, sums, table, B, HW, C, G, chunk_rows,
+                                               nchunks, relu, s)
+              : launch_backward<float>(x, dy, gamma, beta, stats, dx, dgamma, dbeta, part, sums,
+                                       table, B, HW, C, G, chunk_rows, nchunks, relu, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* crossloc_cuda_error_string(int err) {

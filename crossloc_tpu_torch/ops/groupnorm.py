@@ -11,7 +11,14 @@ apply) elsewhere; the note at the top of the source says why.
 Semantics match `crossloc_tpu/ops/pallas_groupnorm.py` (`_kernel`, and its
 reference `_gn_reference`): contiguous channel groups, fp32 statistics with
 the centred variance, affine, optional ReLU, output in the input's dtype.
-The gradient recomputes through the plain version, as the JAX `_bwd` does.
+
+The gradient: on CUDA tensors the forward also writes (mu, rstd) per (image,
+group), and the backward launches the hand-written backward kernel
+(`group_norm_relu_backward`) or raises; on CPU tensors it is the autograd of
+the plain version (`group_norm_relu_backward_plain`), as the JAX `_bwd`
+(`pallas_groupnorm.py:141`) is the vjp of its reference. At an exact tie
+pre-activation == 0 the ReLU passes no gradient (torch's rule; JAX's
+`jnp.maximum` passes half), so tests keep their inputs off the kink.
 """
 from __future__ import annotations
 
@@ -148,10 +155,12 @@ def _lib():
 
         lib = library("groupnorm")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.crossloc_gn_forward.argtypes = [p] * 6 + [i] * 6 + [ctypes.c_float, i, i, p]
+        lib.crossloc_gn_forward.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float, i, i, p]
         lib.crossloc_gn_forward.restype = i
-        lib.crossloc_gn_cluster_forward.argtypes = [p] * 4 + [i] * 11 + [ctypes.c_float, i, i, p]
+        lib.crossloc_gn_cluster_forward.argtypes = [p] * 5 + [i] * 11 + [ctypes.c_float, i, i, p]
         lib.crossloc_gn_cluster_forward.restype = i
+        lib.crossloc_gn_backward.argtypes = [p] * 11 + [i] * 8 + [p]
+        lib.crossloc_gn_backward.restype = i
         lib.crossloc_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -182,10 +191,15 @@ def _raise_on(err: int, lib, design: str) -> None:
         raise RuntimeError(f"groupnorm {design} launch failed: error {err} ({msg})")
 
 
-def _three_pass(x, scale, bias, groups: int, eps: float, relu: bool):
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _three_pass(x, scale, bias, groups: int, eps: float, relu: bool, stats=None):
     """The three-pass design on x's stream: stats, finalize, apply (three
     kernels, a scratch of partials). `_plan` sends slabs too large for a
-    cluster here; called directly, it takes every shape (for comparisons)."""
+    cluster here; called directly, it takes every shape (for comparisons).
+    A float32 `stats` [B, groups, 2] receives (mu, rstd) per (image, group)."""
     _check_cuda(x, scale, bias)
     lib = _lib()
     B, H, W, C = x.shape
@@ -198,14 +212,14 @@ def _three_pass(x, scale, bias, groups: int, eps: float, relu: bool):
     with torch.cuda.device(x.device):
         err = lib.crossloc_gn_forward(
             x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), part.data_ptr(),
-            affine.data_ptr(), B, HW, C, groups, chunk_rows, nchunks, float(eps), int(relu),
-            int(x.dtype == torch.bfloat16), stream)
+            affine.data_ptr(), _ptr(stats), B, HW, C, groups, chunk_rows, nchunks, float(eps),
+            int(relu), int(x.dtype == torch.bfloat16), stream)
     _raise_on(err, lib, "three-pass")
     group_norm_relu.launches += 1
     return y
 
 
-def _cluster(x, scale, bias, groups: int, eps: float, relu: bool, plan: Plan):
+def _cluster(x, scale, bias, groups: int, eps: float, relu: bool, plan: Plan, stats=None):
     """The cluster design on x's stream: one launch, x read once, no scratch."""
     lib = _lib()
     B, H, W, C = x.shape
@@ -213,23 +227,24 @@ def _cluster(x, scale, bias, groups: int, eps: float, relu: bool, plan: Plan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.crossloc_gn_cluster_forward(
-            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), B, H * W, C, groups,
-            plan.cb, plan.cluster, plan.rows_per_cta, plan.box_rows, plan.nbox, plan.threads,
-            plan.smem_bytes, float(eps), int(relu), int(x.dtype == torch.bfloat16), stream)
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(stats), B, H * W,
+            C, groups, plan.cb, plan.cluster, plan.rows_per_cta, plan.box_rows, plan.nbox,
+            plan.threads, plan.smem_bytes, float(eps), int(relu), int(x.dtype == torch.bfloat16),
+            stream)
     _raise_on(err, lib, "cluster")
     group_norm_relu.launches += 1
     return y
 
 
-def _launch(x, scale, bias, groups: int, eps: float, relu: bool):
+def _launch(x, scale, bias, groups: int, eps: float, relu: bool, stats=None):
     """Launch K1 on x's stream in the design `_plan` picks. Raises on any
     input it does not take; a failed launch raises, it never falls back."""
     _check_cuda(x, scale, bias)
     B, H, W, C = x.shape
     plan = _plan(B, H, W, C, groups, x.dtype)
     if plan.design == "cluster":
-        return _cluster(x, scale, bias, groups, eps, relu, plan)
-    return _three_pass(x, scale, bias, groups, eps, relu)
+        return _cluster(x, scale, bias, groups, eps, relu, plan, stats)
+    return _three_pass(x, scale, bias, groups, eps, relu, stats)
 
 
 def _forward(x, scale, bias, groups: int, eps: float, relu: bool):
@@ -240,20 +255,78 @@ def _forward(x, scale, bias, groups: int, eps: float, relu: bool):
     raise ValueError(f"no groupnorm for device {x.device}")
 
 
+def group_norm_relu_backward_plain(x, scale, bias, dy, groups: int, eps: float = GN_EPS,
+                                   relu: bool = True):
+    """(dx, dscale, dbias) of `group_norm_relu_plain` at (x, scale, bias) for
+    the output gradient dy: its autograd, recomputing the forward (the JAX
+    `_bwd`). dx in x's dtype, dscale and dbias float32."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
+        y = group_norm_relu_plain(*leaves, groups, eps, relu)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
+    """K1's backward kernel on x's stream: (dx, dscale, dbias) from x, the
+    forward's `stats` (float32 [B, groups, 2] of mu, rstd) and dy (x's
+    dtype, shape and layout). Raises on any input it does not take,
+    including a non-contiguous dy; a failed launch raises."""
+    _check(x, scale, bias, groups)
+    _check_cuda(x, scale, bias)
+    B, H, W, C = x.shape
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does not match x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    if not dy.is_contiguous() or dy.data_ptr() % _VEC_BYTES != 0:
+        raise ValueError("groupnorm backward takes a contiguous, 16-byte aligned NHWC dy")
+    if (stats.shape != (B, groups, 2) or stats.dtype != torch.float32
+            or stats.device != x.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be a contiguous float32 [{B}, {groups}, 2] on {x.device}")
+    lib = _lib()
+    HW = H * W
+    chunk_rows, nchunks = _chunking(B, HW)
+    dx = torch.empty_like(x)
+    dscale = torch.empty(C, device=x.device, dtype=torch.float32)
+    dbias = torch.empty(C, device=x.device, dtype=torch.float32)
+    part = torch.empty(B * nchunks * 2 * C, device=x.device, dtype=torch.float32)
+    sums = torch.empty(B * 2 * C, device=x.device, dtype=torch.float32)
+    table = torch.empty(B * 5 * C, device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_backward(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(),
+            sums.data_ptr(), table.data_ptr(), B, HW, C, groups, chunk_rows, nchunks,
+            int(relu), int(x.dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "backward")
+    group_norm_relu_backward.launches += 1
+    return dx, dscale, dbias
+
+
+group_norm_relu_backward.launches = 0  # backward kernel launches (CUDA calls only)
+
+
 class _GroupNormReLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, groups, eps, relu):
-        ctx.save_for_backward(x, scale, bias)
         ctx.cfg = (groups, eps, relu)
+        if x.is_cuda:
+            stats = torch.empty(x.shape[0], groups, 2, device=x.device, dtype=torch.float32)
+            y = _launch(x, scale, bias, groups, eps, relu, stats)
+            ctx.save_for_backward(x, scale, bias, stats)
+            return y
+        ctx.save_for_backward(x, scale, bias)
         return _forward(x, scale, bias, groups, eps, relu)
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in (x, scale, bias)]
-            y = group_norm_relu_plain(*leaves, *ctx.cfg)
-            grads = torch.autograd.grad(y, leaves, g)
+        x, scale, bias, *stats = ctx.saved_tensors
+        groups, eps, relu = ctx.cfg
+        if x.is_cuda:
+            grads = group_norm_relu_backward(x, scale, bias, stats[0], g.contiguous(), groups,
+                                             relu)
+        else:
+            grads = group_norm_relu_backward_plain(x, scale, bias, g, groups, eps, relu)
         return (*grads, None, None, None)
 
 
@@ -261,8 +334,8 @@ def group_norm_relu(x, scale, bias, groups: int = 32, eps: float = GN_EPS, relu:
     """GroupNorm(+ReLU) over NHWC `x` [B, H, W, C] with fp32 `scale`/`bias` [C].
 
     CUDA tensors launch kernel K1 (and count one launch); CPU tensors take
-    the plain version. Differentiable: the backward recomputes through the
-    plain version."""
+    the plain version. Differentiable: on CUDA the backward kernel (counted
+    on `group_norm_relu_backward.launches`), on the CPU the plain autograd."""
     _check(x, scale, bias, groups)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
         return _GroupNormReLU.apply(x, scale, bias, groups, eps, relu)

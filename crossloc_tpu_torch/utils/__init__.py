@@ -1,0 +1,20 @@
+"""Logging, output directories and resume bookkeeping."""
+from .io import (
+    config_directory,
+    config_log,
+    get_epoch_from_dirname,
+    get_unique_file_name,
+    read_training_log,
+    safe_printout,
+    search_epoch_extension_model,
+)
+
+__all__ = [
+    "config_directory",
+    "config_log",
+    "get_epoch_from_dirname",
+    "get_unique_file_name",
+    "read_training_log",
+    "safe_printout",
+    "search_epoch_extension_model",
+]

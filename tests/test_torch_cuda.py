@@ -2,6 +2,7 @@
 
 Both designs are held: the one `_plan` picks (the cluster kernel wherever a
 slab fits a cluster) and the three-pass design, reached through `_three_pass`.
+K1's backward kernel is held against the autograd of the plain twin.
 
 Needs a CUDA card: every test skips without one. It imports no JAX, so it
 runs on a machine that has only PyTorch:
@@ -12,8 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
-from crossloc_tpu_torch.ops.groupnorm import _plan, _three_pass
+from crossloc_tpu_torch.ops import (
+    group_norm_relu,
+    group_norm_relu_backward,
+    group_norm_relu_backward_plain,
+    group_norm_relu_plain,
+)
+from crossloc_tpu_torch.ops.groupnorm import _cluster, _plan, _three_pass
 
 pytestmark = pytest.mark.cuda
 
@@ -130,14 +136,107 @@ def test_constant_input_gives_finite_output(card):
     assert bool(torch.isfinite(y).all()) and float(y.abs().max()) < 1e-2
 
 
-def test_gradient_recomputes_through_plain(card):
+def test_gradient_matches_plain_autograd(card):
     x, s, b = _inputs((2, 6, 6), 128, torch.float32, card, seed=3)
     leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    n0 = group_norm_relu_backward.launches
     (group_norm_relu(*leaves, 32) ** 2).sum().backward()
+    assert group_norm_relu_backward.launches == n0 + 1
     ref = [t.clone().requires_grad_() for t in (x, s, b)]
     (group_norm_relu_plain(*ref, 32) ** 2).sum().backward()
     for a, r in zip(leaves, ref):
         torch.testing.assert_close(a.grad, r.grad)
+
+
+def _off_kink_dy(x, s, b, G, seed):
+    """dy of x's dtype, zero where the plain pre-activation lies within 1e-3
+    of the ReLU's kink: the kernel and the plain twin round the statistics
+    in another order, which may flip the mask of such a cell."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    dy = torch.randn(x.shape, generator=g).to(x.device)
+    pre = group_norm_relu_plain(x.float(), s, b, G, 1e-5, False)
+    return (dy * (pre.abs() > 1e-3)).to(x.dtype)
+
+
+def _check_backward(x, s, b, G, relu, dy):
+    """Forward under autograd on the card (which writes the statistics), the
+    backward kernel through autograd, against the plain twin's autograd.
+    f32: dx within 1e-4 * max|ref| + 1e-4 * |ref| (fp32 sums in another
+    order); dscale, dbias within 1e-4 * max|ref|; bf16: one bf16 ulp of dx
+    (2^-7 * |ref|) beyond that, both sides rounding an fp32 dx."""
+    leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    y = group_norm_relu(*leaves, G, 1e-5, relu)
+    n0 = group_norm_relu_backward.launches
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert group_norm_relu_backward.launches == n0 + 1
+    ref = group_norm_relu_backward_plain(x, s, b, dy.contiguous(), G, 1e-5, relu)
+    assert got[0].dtype == x.dtype and got[1].dtype == torch.float32
+    rel = 1e-4 + (2.0**-7 if x.dtype == torch.bfloat16 else 0.0)
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        limit = 1e-4 * r.abs().max() + (rel * r.abs() if r.dim() == 4 else 0.0)
+        assert bool(((a - r).abs() <= limit).all()), float(((a - r).abs() - limit).max())
+    return got
+
+
+# (B, H, W, C, groups) of the backward: ragged chunks and vectors, B=1,
+# C=2048, one group, group size 1, the training batch at stem widths
+BWD_SHAPES = [(2, 30, 45, 512, 32), (3, 7, 13, 96, 32), (1, 5, 5, 32, 1), (2, 9, 11, 64, 64),
+              (1, 17, 23, 1536, 32), (1, 20, 30, 2048, 32), (2, 61, 89, 256, 32),
+              (12, 24, 36, 32, 32), (12, 15, 23, 128, 32)]
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_backward_matches_plain(card, shape, dtype, relu):
+    B, H, W, C, G = shape
+    x, s, b = _inputs((B, H, W), C, getattr(torch, dtype), card, seed=7)
+    _check_backward(x, s, b, G, relu, _off_kink_dy(x, s, b, G, seed=8))
+
+
+def test_backward_is_deterministic(card):
+    x, s, b = _inputs((4, 60, 90), 256, torch.float32, card, seed=9)
+    dy = _off_kink_dy(x, s, b, 32, seed=10)
+    first = _check_backward(x, s, b, 32, True, dy)
+    second = _check_backward(x, s, b, 32, True, dy)
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+def test_backward_takes_a_non_contiguous_dy_through_autograd(card):
+    x, s, b = _inputs((2, 12, 16), 64, torch.float32, card, seed=11)
+    dy_t = _off_kink_dy(x, s, b, 32, seed=12).transpose(1, 2).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    y = group_norm_relu(*leaves, 32)
+    got = torch.autograd.grad(y.transpose(1, 2), leaves, dy_t)  # dy arrives transposed
+    ref = group_norm_relu_backward_plain(x, s, b, dy_t.transpose(1, 2).contiguous(), 32)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+    stats = torch.empty(2, 32, 2, device=card)
+    with pytest.raises(ValueError):
+        group_norm_relu_backward(x, s, b, stats, dy_t.transpose(1, 2), 32)
+    with pytest.raises(ValueError):
+        group_norm_relu_backward(x, s, b, stats, dy_t.transpose(1, 2).contiguous().bfloat16(), 32)
+
+
+@pytest.mark.parametrize("design", ["cluster", "three_pass"])
+def test_forward_writes_the_statistics(card, design):
+    B, H, W, C, G = 2, 60, 90, 256, 32
+    x, s, b = _inputs((B, H, W), C, torch.float32, card, seed=13)
+    stats = torch.full((B, G, 2), float("nan"), device=card)
+    if design == "cluster":
+        plan = _plan(B, H, W, C, G, x.dtype)
+        assert plan.design == "cluster"
+        _cluster(x, s, b, G, 1e-5, True, plan, stats)
+    else:
+        _three_pass(x, s, b, G, 1e-5, True, stats)
+    xd = x.double().reshape(B, H * W, G, C // G)
+    mu = xd.mean(dim=(1, 3))
+    rstd = 1.0 / torch.sqrt(xd.var(dim=(1, 3), unbiased=False) + 1e-5)
+    torch.testing.assert_close(stats[..., 0].double(), mu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[..., 1].double(), rstd, rtol=1e-5, atol=0.0)
 
 
 def test_kernel_raises_on_what_it_does_not_take(card):
