@@ -7,13 +7,16 @@ Phases:
   card     print the card, turn TF32 off, build every CUDA source (nvcc, in
            parallel) and print the build time;
   kernels  hold each kernel against its plain PyTorch version at every shape
-           of the main path (f32 and bf16, ReLU on and off; K1 in the design
+           of the main paths (f32 and bf16, ReLU on and off; K1 in the design
            its planner picks and in the three-pass design, and once with
-           |mean|/std = 1000; K1's backward at the training batch) and time
-           them: device time from CUDA graphs with the L2 evicted between
-           calls, and host-inclusive call time, the two K1 designs in turns
-           (three-pass, planned, planned, three-pass), beside the plain
-           version, one PyTorch library call and the bytes bound;
+           |mean|/std = 1000; the MLR merge norm at C=1536 and 2048; K1's
+           backward at the training batch and at the finetune batch, with
+           C=1536) and time them: device time from CUDA graphs with the L2
+           evicted between calls, and host-inclusive call time, the two K1
+           designs in turns (three-pass, planned, planned, three-pass),
+           beside the plain version, one PyTorch library call and the bytes
+           bound; totals over one forward / step of the coord net (28 calls)
+           and of the finetune path (67 K1, 33 K1-bwd);
   forward  full-width coord+MLE net at 480x720, B=8, seeded weights: kernel
            path against the same net through the plain norm, and 28 kernel
            launches per forward;
@@ -26,8 +29,17 @@ Phases:
            per step), its model.net served by `test_single_task` on cuda,
            one step's gradients on the card against the CPU, 10 steps on one
            batch, a --bf16 run, and the train-step time at B=12;
+  finetune the port's `finetune_decoder_single_task` on cuda with
+           decoder_finetune.sh's settings (coord + depth + normal towers from
+           seeded full-width donors, the coord tower trains) on a 480x720
+           pairwise plane scene: 67 K1 and 33 K1-bwd launches per step, the
+           frozen towers bit-identical to their donors, its model.net served
+           by `test_single_task` on cuda (num_mlr from the folder name), a
+           --bf16 run, one step's trainable gradients on the card against the
+           CPU, and the finetune-step time at B=8;
   profile  (extra, not in the default run) kernel-time breakdown of one
-           image -> pose batch and of one training step with torch.profiler.
+           image -> pose batch, one training step and one finetune step with
+           torch.profiler.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
 `{"ok": true, "device": {...}}`. Exits non-zero if any phase fails, if no
@@ -60,6 +72,17 @@ PRETRAIN_ARGS = ["urbanscape", "--task", "coord", "--inittolerance", "50.0", "--
                  str(TRAIN_BATCH), "--uncertainty", "MLE", "--auto_resume",
                  "--sim_data_chunk", "1.0", "--real_data_chunk", "0.0", "--device", "cuda"]
 
+FT_BATCH = 8  # script_clean_training/decoder_finetune.sh
+# the finetune CLI as script_clean_training/decoder_finetune.sh runs it
+FINETUNE_ARGS = ["urbanscape", "--task", "coord", "--inittolerance", "50.0", "--softclamp",
+                 "100", "--hardclamp", "1000", "--learningrate", "1e-4", "--batch_size",
+                 str(FT_BATCH), "--uncertainty", "MLE", "--auto_resume", "--real_data_domain",
+                 "in_place", "--real_data_chunk", "1.0", "--sim_data_chunk", "0.0",
+                 "--encoders", "coord", "depth", "normal", "--reuse_coord_encoder",
+                 "--unfreeze_coord_encoder", "--no_lr_scheduling", "--device", "cuda"]
+FT_TASKS = ("coord", "depth", "normal")
+FT_FWD, FT_BWD = 67, 33  # K1 per forward (3 x 17 + 5 + 11), K1-bwd per step (17 + 5 + 11)
+
 # (C, H, W, relu, layers per forward) of the 28 Conv->GN layers at 480x720
 GN_PATH_SHAPES = [
     (32, 480, 720, True, 1),   # stem1
@@ -68,6 +91,21 @@ GN_PATH_SHAPES = [
     (256, 60, 90, True, 4),    # stem4, res1_1..3
     (512, 60, 90, True, 20),   # res2_1..3, enc/dec add_res, res3, fc1, fc2
     (512, 60, 90, False, 1),   # res2_skip
+]
+# the MLR merge norm over 3 towers (this path) and 4 (with semantics); in no
+# 28-layer total
+MLR_SHAPES = [(1536, 60, 90, False, 0), (2048, 60, 90, False, 0)]
+# (C, H, W, relu, K1 calls per forward, K1-bwd calls per step) of the
+# finetune path: three towers forward, the first backward too, the five MLR
+# norms and the decoder's eleven
+FT_PATH_SHAPES = [
+    (32, 480, 720, True, 3, 1),
+    (64, 240, 360, True, 3, 1),
+    (128, 120, 180, True, 3, 1),
+    (256, 60, 90, True, 12, 4),
+    (512, 60, 90, True, 41, 23),   # towers' res2 + add_res, mlr_forward, decoder
+    (512, 60, 90, False, 4, 2),    # towers' res2_skip, mlr_skip
+    (1536, 60, 90, False, 1, 1),   # mlr_norm
 ]
 
 
@@ -133,6 +171,17 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _path_totals(rows, col: int, keys) -> dict:
+    """Per dtype, the sums over FT_PATH_SHAPES of (calls in column `col`:
+    4 = K1 per forward, 5 = K1-bwd per step) x each key of the row measured
+    at that (C, relu)."""
+    out = {}
+    for d in ("float32", "bfloat16"):
+        by = {(r["C"], r["relu"]): r for r in rows if r["dtype"] == d}
+        out[d] = {k: sum(s[col] * by[(s[0], s[3])][k] for s in FT_PATH_SHAPES) for k in keys}
+    return out
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -145,6 +194,7 @@ class Smoke:
         self.iters = iters
         self.out_dir = out_dir  # JSON and profile tables
         self.kernels = {}  # name -> dict of the kernels line
+        self.launches = {}  # main path -> {kernel name: launches counted on that path's run}
         self.device_name = None
 
     # -- phase 1 -----------------------------------------------------------
@@ -187,7 +237,7 @@ class Smoke:
         tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, three_pass_ms=0.0)
                for dt in ("float32", "bfloat16")}
         rows = []
-        for C, H, W, relu_path, count in GN_PATH_SHAPES:
+        for C, H, W, relu_path, count in GN_PATH_SHAPES + MLR_SHAPES:
             G = min(32, C)
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype)[6:]
@@ -257,43 +307,78 @@ class Smoke:
                 t["bound_ms"] += count * bound
                 del x
         self._large_mean_check()
+        ft = _path_totals(rows, 4, ("ms", "three_pass_ms", "plain_ms", "library_ms", "bound_ms"))
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "k1_shapes.json"), "w") as f:
             json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
-                           rows=rows, per_forward=tot), f, indent=1)
+                           rows=rows, per_forward=tot, per_finetune_forward=ft), f, indent=1)
         for dname, t in tot.items():
             log(f"K1 over one {dname} forward's 28 calls (B={BATCH}, 480x720), device time: "
                 f"planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, plain "
                 f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms")
+        for dname, t in ft.items():
+            log(f"K1 over one {dname} finetune forward's {FT_FWD} calls (B={FT_BATCH}, 480x720, "
+                f"3 towers + MLR + decoder), device time: planned {t['ms']:.4f} ms, three-pass "
+                f"{t['three_pass_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
         self.kernels["groupnorm"] = dict(
             name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
-            replaces="crossloc_tpu/ops/pallas_groupnorm.py:57", launches=0,
+            replaces="crossloc_tpu/ops/pallas_groupnorm.py:57",
             max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
             library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
         self._backward_kernel(flush)
 
     def _backward_kernel(self, flush):
-        """K1's backward at every path shape, B=TRAIN_BATCH, f32 and bf16,
-        ReLU on and off, against the autograd of the plain twin, and timed:
-        device time (CUDA graphs, L2 evicted), call time, the plain twin
-        (host-inclusive events: its autograd is not captured in a graph),
-        the library's two calls (threshold_backward + native_group_norm_backward
-        on NCHW copies, its own layout) and the bytes bound (x and dy read
-        once, dx written once)."""
+        """K1's backward at the coord net's shapes at B=TRAIN_BATCH (the
+        28-call totals) and at the finetune path's at B=FT_BATCH (C=1536
+        among them; the 33-call totals)."""
+        shapes = [s[:4] for s in GN_PATH_SHAPES]
+        rows, worst = self._backward_rows(flush, TRAIN_BATCH, shapes, seed=1)
+        ft_rows, ft_worst = self._backward_rows(flush, FT_BATCH, [s[:4] for s in FT_PATH_SHAPES],
+                                                seed=2)
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        tot = {d: {k: sum(c * r[k] for r in rows for (C, H, W, relu, c) in GN_PATH_SHAPES
+                          if r["dtype"] == d and (r["C"], r["relu"]) == (C, relu)) for k in keys}
+               for d in ("float32", "bfloat16")}
+        ft = _path_totals(ft_rows, 5, keys)
+        with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows + ft_rows,
+                           per_step=tot, per_finetune_step=ft), f, indent=1)
+        for dname, t in tot.items():
+            log(f"K1-bwd over one {dname} training step's 28 calls (B={TRAIN_BATCH}, 480x720), "
+                f"device time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        for dname, t in ft.items():
+            log(f"K1-bwd over one {dname} finetune step's {FT_BWD} calls (B={FT_BATCH}, 480x720), "
+                f"device time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        f32 = tot["float32"]
+        self.kernels["groupnorm_backward"] = dict(
+            name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
+            replaces="crossloc_tpu/ops/pallas_groupnorm.py:141",
+            max_abs_err=max(worst, ft_worst), ms=f32["ms"], plain_ms=f32["plain_ms"],
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+
+    def _backward_rows(self, flush, B, shapes, seed):
+        """K1's backward at each (C, H, W, relu) of `shapes`, batch B, f32 and
+        bf16, ReLU on and off, against the autograd of the plain twin, and
+        timed at the path's ReLU: device time (CUDA graphs, L2 evicted), call
+        time, the plain twin (host-inclusive events: its autograd is not
+        captured in a graph), the library's two calls (threshold_backward +
+        native_group_norm_backward on NCHW copies, its own layout) and the
+        bytes bound (x and dy read once, dx written once). Returns (rows,
+        worst f32 |dx - plain|)."""
         import torch
 
         from crossloc_tpu_torch.ops import (group_norm_relu_backward,
                                             group_norm_relu_backward_plain, group_norm_relu_plain)
         from crossloc_tpu_torch.ops.groupnorm import _launch
 
-        B = TRAIN_BATCH
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-               for dt in ("float32", "bfloat16")}
+        gen = torch.Generator(device="cuda").manual_seed(seed)
         rows, worst = [], 0.0
-        for C, H, W, relu_path, count in GN_PATH_SHAPES:
+        for C, H, W, relu_path in shapes:
             G = min(32, C)
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype)[6:]
@@ -359,31 +444,14 @@ class Smoke:
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 12 * x.numel() / FP32_FLOPS)
                 row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, ms=sum(dev) / 2,
                            turns_ms=dev, call_ms=call, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound, per_step=count)
+                           bound_ms=bound)
                 rows.append(row)
                 log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu}: device "
                     f"{row['ms']:.4f} ms (turns {dev[0]:.4f}/{dev[1]:.4f}), call {call:.4f} ms, "
                     f"plain {plain:.4f} ms, library {lib:.4f} ms, bytes bound {bound:.4f} ms "
                     f"(bound / device = {bound / row['ms']:.1%})")
-                t = tot[dname]
-                t["ms"] += count * row["ms"]
-                t["plain_ms"] += count * plain
-                t["library_ms"] += count * lib
-                t["bound_ms"] += count * bound
                 del x, dy, xc, dyc, out, yl
-        with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows,
-                           per_step=tot), f, indent=1)
-        for dname, t in tot.items():
-            log(f"K1-bwd over one {dname} training step's 28 calls (B={B}, 480x720), device "
-                f"time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-        f32 = tot["float32"]
-        self.kernels["groupnorm_backward"] = dict(
-            name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
-            replaces="crossloc_tpu/ops/pallas_groupnorm.py:141", launches=0,
-            max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
-            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+        return rows, worst
 
     def _large_mean_check(self):
         """f32 input with mean 1000 and std 1 at the 512-channel path shape:
@@ -514,7 +582,7 @@ class Smoke:
         launches = ops.group_norm_relu.launches
         log(f"test_single_task on cuda: {time.perf_counter() - t0:.1f} s wall for {n_frames} "
             f"frames (first batch includes cuDNN autotuning), {launches} K1 launches")
-        self.kernels["groupnorm"]["launches"] = launches
+        self.launches["serve"] = dict(groupnorm=launches)
         if launches != 28 * math.ceil(n_frames / BATCH):
             raise AssertionError(f"K1 launched {launches} times on the main path")
         text = open(logs[0]).read()
@@ -643,8 +711,7 @@ class Smoke:
         log(f"train_single_task on cuda (B={TRAIN_BATCH}, {IMG_H}x{IMG_W}, f32, 2 epochs): "
             f"{wall:.1f} s wall for {steps} steps, losses {losses}, {fwd} K1 and {bwd} K1-bwd "
             f"launches")
-        if "groupnorm_backward" in self.kernels:  # the kernels phase ran
-            self.kernels["groupnorm_backward"]["launches"] = bwd
+        self.launches["train"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
         if fwd != 28 * steps or bwd != 28 * steps:
             raise AssertionError(f"expected {28 * steps} K1 and K1-bwd launches, got {fwd}/{bwd}")
         if len(losses) != steps or not all(math.isfinite(v) for v in losses):
@@ -685,15 +752,155 @@ class Smoke:
         self._step_time(datasets)
         shutil.rmtree(work, ignore_errors=True)
 
-    def _train_batch(self, datasets, n, device, augment=True, seed=0):
+    # -- phase 6 -----------------------------------------------------------
+    def phase_finetune(self):
+        import re
+
+        import numpy as np
+        import torch
+
+        from crossloc_tpu_torch import compat, data, models, ops
+        from crossloc_tpu_torch.cli import finetune_decoder_single_task as ft_cli
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+        from crossloc_tpu_torch.utils import read_training_log
+
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        n_frames = FT_BATCH  # per pairwise root: 2 * FT_BATCH frames, 2 steps an epoch
+        work = WORK_DIR + "_finetune"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        t0 = time.perf_counter()
+        for seed, section in enumerate(("train_drone_real", "train_drone_sim", "val_drone_real")):
+            data.write_fake_dataset(os.path.join(datasets, "urbanscape", section), n=n_frames,
+                                    img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=seed,
+                                    scene="plane")
+        # full-width task-pretrain donors, in folders that name their task
+        donors = {}
+        for seed, task in enumerate(FT_TASKS, start=1):
+            net = models.build_network(task, "MLE", mean=[0.0] * models.task_channels(task))
+            models.init_weights(net, torch.Generator().manual_seed(seed))
+            os.makedirs(os.path.join(work, "weights", task))
+            donors[task] = os.path.join(work, "weights", task, "model.net")
+            compat.save_net(donors[task], net)
+        log(f"wrote a pairwise plane scene ({n_frames} frames each of train_drone_real, "
+            f"train_drone_sim, val_drone_real at {IMG_H}x{IMG_W}) and three full-width donors "
+            f"in {time.perf_counter() - t0:.1f} s")
+
+        def finetune(session, extra):
+            """The finetune CLI in process on cuda; (output dir, losses, K1 and
+            K1-bwd launches, wall s)."""
+            args = FINETUNE_ARGS + [
+                "--coord_weight", donors["coord"], "--depth_weight", donors["depth"],
+                "--normal_weight", donors["normal"], "--datasets_dir", datasets, "--image_height",
+                str(IMG_H), "--ckpt_dir", os.path.join(work, "ckpts"), "--session", session,
+                *extra]
+            cwd = os.getcwd()
+            os.chdir(work)
+            ops.group_norm_relu.launches = 0
+            ops.group_norm_relu_backward.launches = 0
+            t = time.perf_counter()
+            try:
+                out_dir = ft_cli.main(args)
+                torch.cuda.synchronize()
+            finally:
+                os.chdir(cwd)
+            wall = time.perf_counter() - t
+            fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+            text = open(os.path.join(out_dir, "output.log")).read()
+            losses = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", text)]
+            return out_dir, losses, fwd, bwd, wall
+
+        # the main path: decoder finetuning, 2 epochs of 2 steps
+        out_dir, losses, fwd, bwd, wall = finetune("smoke", ["--epochs", "2"])
+        steps = 2 * (2 * n_frames) // FT_BATCH
+        log(f"finetune_decoder_single_task on cuda (B={FT_BATCH}, {IMG_H}x{IMG_W}, f32, 2 epochs, "
+            f"3 towers): {wall:.1f} s wall for {steps} steps, losses {losses}, {fwd} K1 and {bwd} "
+            f"K1-bwd launches ({fwd / steps:g} and {bwd / steps:g} per step)")
+        self.launches["finetune"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        if fwd != FT_FWD * steps or bwd != FT_BWD * steps:
+            raise AssertionError(f"expected {FT_FWD} K1 and {FT_BWD} K1-bwd launches per step, got "
+                                 f"{fwd}/{bwd} over {steps} steps")
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        if read_training_log(os.path.join(out_dir, "output.log"), 2 * n_frames) != (
+                4 * n_frames, 1):
+            raise AssertionError("output.log does not parse to (iteration 32, epoch 1)")
+        ckpt_dir = os.path.join(work, "ckpts", os.path.basename(out_dir))
+        ckpts = sorted(f for f in os.listdir(ckpt_dir) if f.startswith("ckpt_iter_"))
+        for d in (out_dir, ckpt_dir):
+            if not os.path.exists(os.path.join(d, "FLAG_training_done.nodata")):
+                raise AssertionError(f"no FLAG_training_done.nodata in {d}")
+        if not ckpts or not os.path.exists(os.path.join(out_dir, "model.net")):
+            raise AssertionError("model.net or ckpt_iter_*.net not written")
+        log(f"written: {os.path.basename(out_dir)}/model.net, output.log, {ckpts}, "
+            f"FLAG_training_done.nodata (both directories)")
+
+        # the depth and normal towers are their donors' encoders, bit for bit;
+        # the coord tower, the MLR blocks and the decoder trained
+        trained = compat.load_net(os.path.join(out_dir, "model.net"))
+        init = self._mlr_model("cpu").state_dict()
+        for tower, task in ((2, "depth"), (3, "normal")):
+            enc = {k[8:]: v for k, v in compat.load_net(donors[task]).items()
+                   if k.startswith("encoder.")}
+            same = all(torch.equal(trained[f"mlr_encoder_{tower}.{k}"], v) for k, v in enc.items())
+            if not same or len(enc) != sum(k.startswith(f"mlr_encoder_{tower}.") for k in trained):
+                raise AssertionError(f"frozen tower {tower} ({task}) changed in training")
+        coord = compat.load_net(donors["coord"])
+        moved = {"tower 1": not torch.equal(trained["mlr_encoder_1.conv1.weight"],
+                                            coord["encoder.conv1.weight"]),
+                 "decoder": not torch.equal(trained["decoder.fc3.weight"],
+                                            coord["decoder.fc3.weight"])}
+        moved.update({k: not torch.equal(trained[k], init[k]) for k in (
+            "mlr_skip.0.weight", "mlr_norm.weight", "mlr_forward.0.weight", "mlr_forward.6.weight")})
+        log(f"towers 2 and 3 bit-identical to the depth and normal donors; changed by training: "
+            f"{moved}")
+        if not all(moved.values()):
+            raise AssertionError("a trainable part of the net did not change")
+
+        # serve the finetuned net: num_mlr = 3 from the folder name
+        ops.group_norm_relu.launches = 0
+        logs = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                              "--network_in", os.path.join(out_dir, "model.net"), "--section",
+                              "val_drone_real", "--datasets_dir", datasets, "--image_height",
+                              str(IMG_H), "--save_pred", "--device", "cuda"])
+        torch.cuda.synchronize()
+        served = ops.group_norm_relu.launches
+        self.launches["finetune_serve"] = dict(groupnorm=served)
+        pred_dir = os.path.join(out_dir, "coord_pred_model.net_val_drone_real")
+        poses = [np.load(os.path.join(pred_dir, f))["pose_pred"] for f in sorted(os.listdir(pred_dir))]
+        median = re.findall(r"Median Error:\s+(\d+.\d+) deg, (\d+.\d+) m", open(logs[0]).read())
+        log(f"served the finetuned model.net on cuda: {logs[0]}, {len(poses)} poses, {served} K1 "
+            f"launches, median {median[-1][1]} m / {median[-1][0]} deg after {steps} steps")
+        if served != FT_FWD or len(poses) != n_frames or not all(np.isfinite(p).all() for p in poses):
+            raise AssertionError("the finetuned net did not serve")
+
+        _, losses16, fwd16, bwd16, wall16 = finetune("smoke_bf16", ["--epochs", "1", "--bf16"])
+        log(f"finetune_decoder_single_task --bf16 on cuda: {wall16:.1f} s, losses {losses16}, "
+            f"{fwd16} K1 and {bwd16} K1-bwd launches")
+        if fwd16 != FT_FWD * 2 or bwd16 != FT_BWD * 2 or not all(math.isfinite(v) for v in losses16):
+            raise AssertionError("the --bf16 finetune run is off")
+
+        def make(dev, dtype=None):
+            return self._mlr_model(dev, dtype, donors)
+
+        # f32 on the card, with or without K1 and cuDNN, sits further from
+        # float64 at this net's stems than the CPU's f32 does (PERF.md §6):
+        # the card's plain twin sets the rounding the kernels may add to
+        self._gradients_against_cpu(datasets, make, section="train_drone_real",
+                                    yardstick=("cpu", "card_plain"))
+        self._step_time(datasets, make, FT_BATCH, "train_drone_real", "finetune.json")
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _train_batch(self, datasets, n, device, augment=True, seed=0, section="train_sim"):
         """(normalised images, poses, labels, focal, pp_shift) of the first n
-        train_sim frames, augmented on the CPU with fixed draws, on `device`."""
+        frames of `section`, augmented on the CPU with fixed draws, on `device`."""
         import torch
 
         from crossloc_tpu_torch import data
         from crossloc_tpu_torch.train import TrainBatch
 
-        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", "train_sim"),
+        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", section),
                                image_height=IMG_H).collate(range(n))
         images = torch.from_numpy(b["image"])
         labels, poses = torch.from_numpy(b["coord"]), torch.from_numpy(b["pose"])
@@ -719,29 +926,89 @@ class Smoke:
             m.dtype = dtype
         return m.to(memory_format=torch.channels_last) if device == "cuda" else m
 
-    def _gradients_against_cpu(self, datasets):
-        """One step at full width, 480x720, B=2, same weights and batch: the
-        card (K1, K1-bwd, TF32 off) against the CPU (plain twins) in float32,
-        and both against the CPU in float64 (the loss stays float32)."""
+    def _mlr_model(self, device, dtype=None, donors=None):
+        """The finetune CLI's net: three full-width towers, the first
+        trainable, seeded MLR blocks; towers and decoder wired from the donor
+        `.net` files when given."""
         import torch
 
+        from crossloc_tpu_torch import data, models
+        from crossloc_tpu_torch.cli import common
+
+        m = models.build_network("coord", "MLE", num_mlr=3, num_unfrozen_encoder=1,
+                                 mean=list(data.get_label_mean("urbanscape", "coord")))
+        models.init_weights(m, torch.Generator().manual_seed(2021))
+        if donors is not None:
+            common.wire_mlr_weights(m, [donors[t] for t in FT_TASKS], True)
+        m.to(device)
+        if dtype is not None:
+            m.dtype = dtype
+        return m.to(memory_format=torch.channels_last) if device == "cuda" else m
+
+    def _gradients_against_cpu(self, datasets, make_model=None, section="train_sim",
+                               yardstick=("cpu",)):
+        """One step at full width, 480x720, B=2, same weights and batch: the
+        card (K1, K1-bwd, TF32 off) against the CPU (plain twins) in float32,
+        and both against the CPU in float64 (the loss stays float32). Only
+        trainable parameters have a gradient; frozen ones must have none.
+
+        Four card runs, all reported: "card", the path as it runs, which the
+        limit holds; "card_native", cuDNN off (PyTorch's own CUDA
+        convolutions, im2col and an fp32 GEMM); "card_plain_bwd", K1's
+        forward with the plain twin's backward; "card_plain", the plain twin
+        for every norm. They tell the kernels' rounding from the rest of the
+        card's. The f32 rounding the limit allows is the largest distance
+        from float64 of the plain f32 runs named in `yardstick` (the CPU's,
+        and for the finetune net also the card's plain twin's)."""
+        import contextlib
+
+        import torch
+
+        from crossloc_tpu_torch.models import layers
+        from crossloc_tpu_torch.ops import groupnorm as gn
         from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
 
+        @contextlib.contextmanager
+        def variant(run):
+            cudnn = torch.backends.cudnn.flags(enabled=run != "card_native", benchmark=False,
+                                              deterministic=False, allow_tf32=False)
+            saved = layers.group_norm_relu, gn.group_norm_relu_backward
+            if run == "card_plain":
+                layers.group_norm_relu = gn.group_norm_relu_plain
+            if run == "card_plain_bwd":
+                gn.group_norm_relu_backward = (
+                    lambda x, s, b, st, dy, G, relu: gn.group_norm_relu_backward_plain(
+                        x, s, b, dy, G, gn.GN_EPS, relu))
+            try:
+                with cudnn:
+                    yield
+            finally:
+                layers.group_norm_relu, gn.group_norm_relu_backward = saved
+
+        make_model = make_model or self._model
         grads, losses = {}, {}
-        batch = self._train_batch(datasets, 2, "cpu")
-        for run, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
-                                ("cpu64", "cpu", torch.float64)):
-            model = self._model(dev)
+        batch = self._train_batch(datasets, 2, "cpu", section=section)
+        cards = ("card", "card_native", "card_plain_bwd", "card_plain")
+        for run, dev, dtype in ([(c, "cuda", torch.float32) for c in cards]
+                                + [("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64)]):
+            model = make_model(dev)
             if dtype == torch.float64:
                 model.double().dtype = torch.float64
-            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+            trainable = [p for p in model.parameters() if p.requires_grad]
+            state = TrainState(model, make_optimizer(trainable, 2e-4))
             b = TrainBatch(*(t.to(dev, dtype) for t in batch))
             t = time.perf_counter()
-            m = train_step(state, b, "coord", "MLE")
+            with variant(run):
+                m = train_step(state, b, "coord", "MLE")
             losses[run] = float(m["loss"])
-            grads[run] = {k: p.grad.detach().double().cpu() for k, p in model.named_parameters()}
+            named = dict(model.named_parameters())
+            if any(p.grad is not None for p in named.values() if not p.requires_grad):
+                raise AssertionError("a frozen parameter has a gradient")
+            grads[run] = {k: p.grad.detach().double().cpu() for k, p in named.items()
+                          if p.requires_grad}
             log(f"  one step, {run}: loss {losses[run]:.6f}, grad norm "
-                f"{float(m['grad_norm']):.6f}, {time.perf_counter() - t:.1f} s")
+                f"{float(m['grad_norm']):.6f}, {len(grads[run])} of {len(named)} tensors "
+                f"trainable, {time.perf_counter() - t:.1f} s")
             del model, state
 
         def dist(a, b):
@@ -749,27 +1016,35 @@ class Smoke:
 
         norm = {k: float(g.norm()) for k, g in grads["cpu"].items()}
         total = float(torch.sqrt(sum(g.square().sum() for g in grads["cpu64"].values())))
-        d_cc, d_c64, d_cpu64 = dist("card", "cpu"), dist("card", "cpu64"), dist("cpu", "cpu64")
-        rel = {k: d_cc[k] / max(norm[k], 1e-30) for k in norm}
-        worst = sorted(rel, key=rel.get, reverse=True)[:4]
-        log(f"gradients card vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / |g_cpu| "
-            f"median {sorted(rel.values())[len(rel) // 2]:.3e} over {len(rel)} tensors, "
-            f"{sum(v > 1e-3 for v in rel.values())} above 1e-3; worst "
-            + ", ".join(f"{k} {rel[k]:.3e} (card vs f64 {d_c64[k] / norm[k]:.3e}, CPU f32 vs "
-                        f"f64 {d_cpu64[k] / norm[k]:.3e}, |g| {norm[k]:.3e})" for k in worst)
-            + f"; global |g| {total:.3e}")
-        # per tensor, the card within 1e-3 of the CPU's gradient, or no
-        # further from the float64 gradient than 1e-3 of its norm plus twice
-        # the CPU float32 path's own distance from it, plus 1e-6 of the global
-        # norm (the bias of stem1's conv has a true gradient of zero: a
-        # GroupNorm of one channel per group removes it)
-        bad = [k for k in norm if rel[k] > 1e-3 and d_c64[k] > 1e-3 * norm[k]
-               + 2 * d_cpu64[k] + 1e-6 * total]
-        d_loss = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
-        log(f"  tensors over both limits: {bad}; loss card vs CPU rel {d_loss:.3e} "
-            f"(limit 1e-4)")
-        if bad or d_loss > 1e-4:
-            raise AssertionError("card gradients disagree with the CPU's")
+        d_cpu64 = dist("cpu", "cpu64")
+        d_yard = [dist(y, "cpu64") for y in yardstick]
+        ref = {k: max(d[k] for d in d_yard) for k in norm}
+        for card in cards:
+            d_cc, d_c64 = dist(card, "cpu"), dist(card, "cpu64")
+            rel = {k: d_cc[k] / max(norm[k], 1e-30) for k in norm}
+            worst = sorted(rel, key=rel.get, reverse=True)[:4]
+            log(f"gradients {card} vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / "
+                f"|g_cpu| median {sorted(rel.values())[len(rel) // 2]:.3e} over {len(rel)} "
+                f"tensors, {sum(v > 1e-3 for v in rel.values())} above 1e-3; worst "
+                + ", ".join(f"{k} {rel[k]:.3e} (card vs f64 {d_c64[k] / norm[k]:.3e}, CPU f32 "
+                            f"vs f64 {d_cpu64[k] / norm[k]:.3e}, |g| {norm[k]:.3e})"
+                            for k in worst)
+                + f"; global |g| {total:.3e}")
+            # per tensor, the card within 1e-3 of the CPU's gradient, or no
+            # further from the float64 gradient than 1e-3 of its norm plus
+            # twice the f32 rounding allowed (for the coord net, the CPU f32
+            # path's own distance from float64), plus 1e-6 of the global norm
+            # (the bias of stem1's conv has a true gradient of zero: a
+            # GroupNorm of one channel per group removes it)
+            over = {name: [k for k in norm if rel[k] > 1e-3 and d_c64[k] > 1e-3 * norm[k]
+                           + 2 * r[k] + 1e-6 * total]
+                    for name, r in (("CPU f32 rounding", d_cpu64), ("yardstick", ref))}
+            d_loss = abs(losses[card] - losses["cpu"]) / abs(losses["cpu"])
+            log(f"  {card}: tensors over the limit with the CPU f32's rounding: "
+                f"{over['CPU f32 rounding']}; with the rounding of {'/'.join(yardstick)}: "
+                f"{over['yardstick']}; loss vs CPU rel {d_loss:.3e} (limit 1e-4)")
+            if card == "card" and (over["yardstick"] or d_loss > 1e-4):
+                raise AssertionError("card gradients disagree with the CPU's")
 
     def _fixed_batch_descends(self, datasets):
         import torch
@@ -785,25 +1060,31 @@ class Smoke:
         if not losses[-1] < losses[0]:
             raise AssertionError("the loss did not go down on a fixed batch")
 
-    def _step_time(self, datasets):
+    def _step_time(self, datasets, make_model=None, batch_size=TRAIN_BATCH,
+                   section="train_sim", out_name="train.json"):
         """One training step (augmentation of uint8 images, forward, loss,
-        backward, Adam) at B=TRAIN_BATCH, between CUDA events."""
+        backward, Adam over the trainable parameters) at `batch_size`,
+        between CUDA events, f32 (TF32 off) and bf16, with img/s and peak
+        memory."""
         import torch
 
         from crossloc_tpu_torch import data
         from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
 
-        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", "train_sim"),
-                               image_height=IMG_H).collate(range(TRAIN_BATCH))
+        make_model = make_model or self._model
+        B = batch_size
+        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", section),
+                               image_height=IMG_H).collate(range(B))
         wire = torch.from_numpy(data.images_to_wire(b["image"])).cuda()
         labels, poses = torch.from_numpy(b["coord"]).cuda(), torch.from_numpy(b["pose"]).cuda()
         focal = torch.tensor(float(b["focal"][0]), device="cuda")
-        draws = data.draw_augmentation(torch.Generator().manual_seed(0), TRAIN_BATCH).to("cuda")
+        draws = data.draw_augmentation(torch.Generator().manual_seed(0), B).to("cuda")
         out = {}
         os.makedirs(self.out_dir, exist_ok=True)
         for dtype in (torch.float32, torch.bfloat16):
-            model = self._model("cuda", dtype)
-            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+            model = make_model("cuda", dtype)
+            trainable = [p for p in model.parameters() if p.requires_grad]
+            state = TrainState(model, make_optimizer(trainable, 2e-4))
 
             def step():
                 im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
@@ -814,22 +1095,23 @@ class Smoke:
             ms = cuda_ms(step, iters=5, warmup=2)
             peak = torch.cuda.max_memory_allocated() / 2**30
             name = str(dtype)[6:]
-            out[name] = dict(ms=ms, img_s=1e3 * TRAIN_BATCH / ms, peak_gib=peak)
-            log(f"train step B={TRAIN_BATCH} {IMG_H}x{IMG_W} {name} on {self.device_name} "
-                f"({nvidia_smi_line()}): {ms:.2f} ms = {1e3 * TRAIN_BATCH / ms:.1f} img/s, "
+            out[name] = dict(ms=ms, img_s=1e3 * B / ms, peak_gib=peak)
+            log(f"{out_name[:-5]} step B={B} {IMG_H}x{IMG_W} {name} on {self.device_name} "
+                f"({nvidia_smi_line()}): {ms:.2f} ms = {1e3 * B / ms:.1f} img/s, "
                 f"peak memory {peak:.2f} GiB")
             del model, state
-        with open(os.path.join(self.out_dir, "train.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), batch=TRAIN_BATCH,
+        with open(os.path.join(self.out_dir, out_name), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), batch=B,
                            steps=out), f, indent=1)
 
     # -- extra phase, not in the default run ---------------------------------
     def phase_profile(self):
-        """Where the time of one image -> pose batch and of one training step
-        goes, by kernel group (torch.profiler), and the device's busy share
-        of the wall time."""
+        """Where the time of one image -> pose batch, one training step and
+        one finetune step goes, by kernel group (torch.profiler), and the
+        device's busy share of the wall time."""
         self._profile_serve()
-        self._profile_train()
+        self._profile_step(self._model, TRAIN_BATCH, "train")
+        self._profile_step(self._mlr_model, FT_BATCH, "finetune")
 
     @staticmethod
     def _kernel_groups(prof):
@@ -851,16 +1133,16 @@ class Smoke:
             g[1] += e.time_range.elapsed_us() / 1e3
         return sum(g[1] for g in groups.values()), len(kernels), groups
 
-    def _profile_train(self):
-        """One training step (augmentation, forward, loss, backward, Adam) at
-        B=TRAIN_BATCH, 480x720, f32 and bf16, on a seeded synthetic batch."""
+    def _profile_step(self, make_model, B, tag):
+        """One training step (augmentation, forward, loss, backward, Adam) of
+        `make_model`'s net at batch B, 480x720, f32 and bf16, on a seeded
+        synthetic batch."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
         from crossloc_tpu_torch import data
         from crossloc_tpu_torch.train import TrainBatch, TrainState, make_optimizer, train_step
 
-        B = TRAIN_BATCH
         gen = torch.Generator(device="cuda").manual_seed(5)
         wire = torch.randint(0, 256, (B, IMG_H, IMG_W, 3), device="cuda", generator=gen,
                              dtype=torch.uint8)
@@ -872,8 +1154,9 @@ class Smoke:
         focal = torch.tensor(480.0, device="cuda")
         draws = data.draw_augmentation(torch.Generator().manual_seed(0), B).to("cuda")
         for dtype in (torch.float32, torch.bfloat16):
-            model = self._model("cuda", dtype)
-            state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+            model = make_model("cuda", dtype)
+            trainable = [p for p in model.parameters() if p.requires_grad]
+            state = TrainState(model, make_optimizer(trainable, 2e-4))
 
             def step():
                 im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
@@ -890,11 +1173,11 @@ class Smoke:
                 wall = (time.perf_counter() - t0) * 1e3
             busy, n, groups = self._kernel_groups(prof)
             name = str(dtype)[6:]
-            log(f"profile train step {name} B={B} {IMG_H}x{IMG_W}: wall {wall:.2f} ms, device "
+            log(f"profile {tag} step {name} B={B} {IMG_H}x{IMG_W}: wall {wall:.2f} ms, device "
                 f"busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, {n} "
                 f"kernels; by group: " + ", ".join(
                     f"{k} {v[0]} launches {v[1]:.2f} ms" for k, v in sorted(groups.items())))
-            with open(os.path.join(self.out_dir, f"profile_train_{name}.txt"), "w") as f:
+            with open(os.path.join(self.out_dir, f"profile_{tag}_{name}.txt"), "w") as f:
                 f.write(f"{self.device_name} | {nvidia_smi_line()}\n")
                 f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
             del model, state
@@ -934,12 +1217,19 @@ class Smoke:
         model.dtype = torch.float32
 
     def kernels_line(self) -> str:
-        keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms")
-        return json.dumps({"kernels": [{k: v[k] for k in keys} for v in self.kernels.values()]})
+        """The kernels JSON line: `launches` sums each main path's counted run
+        (`launches_by_path` lists them); times are the 28-call totals."""
+        keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")
+        out = []
+        for name, v in self.kernels.items():
+            by_path = {p: n[name] for p, n in self.launches.items() if name in n}
+            out.append(dict({k: v[k] for k in keys}, launches=sum(by_path.values()),
+                            launches_by_path=by_path))
+        return json.dumps({"kernels": out})
 
 
-PHASES = ("card", "kernels", "forward", "serve", "train")
+PHASES = ("card", "kernels", "forward", "serve", "train", "finetune")
 EXTRA_PHASES = ("profile",)
 
 

@@ -1,15 +1,16 @@
-"""Shared CLI pieces: the device, dataset roots, the training loader and the
-network (counterpart of `crossloc_tpu/cli/common.py`, `num_mlr=0`)."""
+"""Shared CLI pieces: the device, dataset roots, the training loader, the
+network, the MLR weight wiring and the tower count of a finetuned net's
+folder (counterpart of `crossloc_tpu/cli/common.py`)."""
 from __future__ import annotations
 
 import logging
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import models
+from .. import compat, models
 from ..data import CamLocDataset, Loader, get_label_mean
 from ..device import resolve_device
 
@@ -84,11 +85,71 @@ def build_train_loader(scene: str, task: str, grayscale: bool, real_data_domain:
 
 
 def build_network(scene: str, task: str, tiny: bool, grayscale: bool,
-                  uncertainty: Optional[str], fullsize: bool, mean,
+                  uncertainty: Optional[str], fullsize: bool, mean, num_mlr: int = 0,
+                  num_unfrozen_encoder: int = 0,
                   dtype: torch.dtype = torch.float32) -> models.TransPoseNet:
-    """TransPoseNet for the task with the scene's output mean."""
+    """TransPoseNet for the task with the scene's output mean; `num_mlr`
+    towers of which the first `num_unfrozen_encoder` train."""
     if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
         raise NotImplementedError(_VANILLA_TODO)
     return models.build_network(task, uncertainty=uncertainty, tiny=tiny, grayscale=grayscale,
-                                fullsize=fullsize, mean=list(np.asarray(mean, np.float32)),
-                                dtype=dtype)
+                                fullsize=fullsize, num_mlr=num_mlr,
+                                num_unfrozen_encoder=num_unfrozen_encoder,
+                                mean=list(np.asarray(mean, np.float32)), dtype=dtype)
+
+
+def _renamed(state: Dict[str, torch.Tensor], src: str, dst: str,
+             want: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """The entries of `state` under `src`, renamed to `dst`; their names must
+    be exactly `want` (the target module's keys)."""
+    out = {dst + k[len(src):]: v for k, v in state.items() if k.startswith(src)}
+    if set(out) != set(want):
+        diff = sorted(set(out) ^ set(want))
+        raise KeyError(f"{src}* of the donor does not match {dst}* of the model: {diff[:8]}")
+    return out
+
+
+def wire_mlr_weights(model: models.TransPoseNet, encoder_paths: Sequence[str],
+                     reuse_coord_encoder: bool) -> models.TransPoseNet:
+    """Load task-pretrain `.net` weights into an MLR model, in place: the
+    coord weight (first path) gives the decoder and the output mean, and its
+    encoder the first tower iff `reuse_coord_encoder`; each further weight's
+    encoder fills the next tower. A `.net` is a state dict in the reference
+    grammar, so wiring renames keys (`encoder.*` -> `mlr_encoder_{i}.*`); a
+    donor's own head (another task's channels, a DUC) is not read. The MLR
+    blocks keep the model's weights. Freezing is the model's
+    (`num_unfrozen_encoder`)."""
+    if "coord" not in os.path.abspath(encoder_paths[0]):
+        raise ValueError("first weight must be the coord task")
+    n_towers = len(encoder_paths) - (0 if reuse_coord_encoder else 1)
+    if n_towers != model.num_mlr:
+        raise ValueError(f"wired {n_towers} encoders but model has num_mlr={model.num_mlr}")
+    keys = list(model.state_dict())
+    donors = [compat.load_net(p) for p in encoder_paths]
+    wired = _renamed(donors[0], "decoder.", "decoder.",
+                     [k for k in keys if k.startswith("decoder.")])
+    wired["mean"] = donors[0]["decoder.mean"]
+    logging.info("Loaded coord weight for decoder init: %s", encoder_paths[0])
+    if not reuse_coord_encoder:
+        donors = donors[1:]
+    for i, donor in enumerate(donors, start=1):
+        dst = f"mlr_encoder_{i}."
+        wired.update(_renamed(donor, "encoder.", dst, [k for k in keys if k.startswith(dst)]))
+        logging.info("Wired MLR encoder %d (%s) from %s", i,
+                     "trainable" if i <= model.num_unfrozen_encoder else "frozen",
+                     encoder_paths[i - 1 if reuse_coord_encoder else i])
+    state = model.state_dict()
+    state.update(wired)
+    model.load_state_dict(state, strict=True)
+    return model
+
+
+def infer_num_encoders(weight_path: str) -> int:
+    """Encoder count from the output-folder name: the tasks named after
+    'decoder_' (0 for a single-task net); 'free'/'frozen' markers follow
+    'coord' and add none."""
+    name = os.path.basename(os.path.dirname(os.path.abspath(weight_path)))
+    if "decoder_" not in name:
+        return 0
+    spec = name.split("decoder_")[1].split("-")[0]
+    return sum(p in ("coord", "depth", "normal", "semantics") for p in spec.split("_"))

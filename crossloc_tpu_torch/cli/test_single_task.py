@@ -1,5 +1,7 @@
 """Evaluate trained weights on the coord task: image -> pose through the
-port's net and solver, on the card unless `--device cpu`.
+port's net and solver, on the card unless `--device cpu`. A finetuned MLR
+net's tower count comes from its folder's name ("decoder_coord_free_depth_
+normal" holds three).
 
     python -m crossloc_tpu_torch.cli.test_single_task urbanscape --task coord \
         --uncertainty MLE --network_in <dir or model.net> --section val_drone_real
@@ -24,7 +26,7 @@ import torch
 from .. import compat, eval as evaluation, models, ransac
 from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
 from ..losses import get_nodata_value
-from .common import select_device_from_env
+from .common import infer_num_encoders, select_device_from_env
 
 _TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
 _PARALLEL_TODO = "--num_devices > 1 is ROADMAP queue 1, item 13 (parallel)"
@@ -142,16 +144,6 @@ def resolve_eval_roots(scene: str, section_keyword: str, datasets_dir: str = "./
     if section_keyword not in specials:
         raise NotImplementedError(f"section {section_keyword} not found")
     return [os.path.join(datasets_dir, scene, s) for s in specials[section_keyword]]
-
-
-def infer_num_encoders(weight_path: str) -> int:
-    """Encoder count from the output-folder name: the tasks named after
-    'decoder_' (0 for a single-task net)."""
-    name = os.path.basename(os.path.dirname(os.path.abspath(weight_path)))
-    if "decoder_" not in name:
-        return 0
-    spec = name.split("decoder_")[1].split("-")[0]
-    return sum(p in ("coord", "depth", "normal", "semantics") for p in spec.split("_"))
 
 
 def _ransac_config(opt, fullsize: bool) -> ransac.RansacConfig:

@@ -26,6 +26,7 @@ import argparse
 import logging
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -152,8 +153,12 @@ def augment_generator(epoch: int, batch_idx: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.device) -> TrainState:
-    """The training loop; returns the final state."""
+def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.device,
+                 model: Optional[models.TransPoseNet] = None) -> TrainState:
+    """The training loop shared by the train and finetune CLIs; returns the
+    final state. Without `model` it builds the task's net with seeded
+    weights; a given model (the finetune CLI's wired MLR net) is trained as
+    it comes. `--network_in` weights load into either."""
     nodata_value = get_nodata_value(opt.scene)
     trainset, loader, mean = common.build_train_loader(
         opt.scene, opt.task, opt.grayscale, opt.real_data_domain, opt.real_data_chunk,
@@ -164,10 +169,11 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
                          "no full batch can be formed (drop_last); reduce --batch_size")
     steps_per_epoch = len(loader)
 
-    model = common.build_network(opt.scene, opt.task, opt.tiny, opt.grayscale, opt.uncertainty,
-                                 opt.fullsize, mean,
-                                 dtype=torch.bfloat16 if opt.bf16 else torch.float32)
-    models.init_weights(model, torch.Generator().manual_seed(2021))
+    if model is None:
+        model = common.build_network(opt.scene, opt.task, opt.tiny, opt.grayscale,
+                                     opt.uncertainty, opt.fullsize, mean,
+                                     dtype=torch.bfloat16 if opt.bf16 else torch.float32)
+        models.init_weights(model, torch.Generator().manual_seed(2021))
     # a run from --network_in snapshots to model_{auto_,epoch_plus_}resume.net
     # and writes the weights it loaded at once; a fresh run to model.net
     if opt.network_in is not None:
@@ -185,8 +191,10 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     model.to(device)
     if device.type == "cuda":
         model.to(memory_format=torch.channels_last)
-    state = TrainState(model, make_optimizer(model.parameters(), opt.learningrate,
-                                             steps_per_epoch, opt.no_lr_scheduling))
+    # Adam takes the parameters that train: frozen MLR towers stay out
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    state = TrainState(model, make_optimizer(trainable, opt.learningrate, steps_per_epoch,
+                                             opt.no_lr_scheduling))
     save_period = 5  # epochs between ckpt_iter_*.net files (coord)
 
     aug_cfg = AugmentConfig(grayscale=opt.grayscale, nodata_value=nodata_value)

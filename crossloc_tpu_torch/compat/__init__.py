@@ -1,6 +1,6 @@
 """Checkpoint and naming compatibility with the reference and the JAX package."""
-from .naming import read_meta_info, train_output_name
+from .naming import finetune_output_name, read_meta_info, train_output_name
 from .weights import load_net, save_net, state_dict_from_flax, transpose_net_key_map
 
-__all__ = ["load_net", "read_meta_info", "save_net", "state_dict_from_flax",
-           "train_output_name", "transpose_net_key_map"]
+__all__ = ["finetune_output_name", "load_net", "read_meta_info", "save_net",
+           "state_dict_from_flax", "train_output_name", "transpose_net_key_map"]

@@ -10,6 +10,8 @@ grammar (a copy of `crossloc_tpu/compat/torch_import.py:24-101`):
     GroupNorm scale/bias            ->  weight/bias
     ResBlock layer{1,2,3}/{conv,norm}{i}  ->  Sequential .0/.1, .3/.4, .6/.7
     decoder/mean                    ->  decoder.mean and the top-level mean
+    mlr_encoder_{i}, mlr_norm, mlr_forward (a ResBlock), mlr_skip/ConvGN_0
+                                    ->  the same names, mlr_skip.0 / .1
 """
 from __future__ import annotations
 
@@ -68,13 +70,19 @@ def _decoder_entries(tprefix: str, fprefix: str, add_res: int):
 
 
 def transpose_net_key_map(model) -> List[Tuple[str, str, str]]:
-    """(torch_key, flax_path, transform) triplets of a `num_mlr=0`
-    TransPoseNet. The top-level `mean` duplicates `decoder.mean`."""
-    return (
-        [("mean", "decoder/mean", "copy")]
-        + _encoder_entries("encoder.", "encoder", model.tiny, model.enc_add_res_block)
-        + _decoder_entries("decoder.", "decoder", model.dec_add_res_block)
-    )
+    """(torch_key, flax_path, transform) triplets of a TransPoseNet. The
+    top-level `mean` duplicates `decoder.mean`."""
+    entries = [("mean", "decoder/mean", "copy")]
+    if model.num_mlr == 0:
+        entries += _encoder_entries("encoder.", "encoder", model.tiny, model.enc_add_res_block)
+    else:
+        for i in range(1, model.num_mlr + 1):
+            entries += _encoder_entries(f"mlr_encoder_{i}.", f"mlr_encoder_{i}", model.tiny,
+                                        model.enc_add_res_block)
+        entries += _norm_entries("mlr_norm", "mlr_norm")
+        entries += _seq_res_block("mlr_forward", "mlr_forward")
+        entries += _convgn("mlr_skip.0", "mlr_skip.1", "mlr_skip/ConvGN_0")
+    return entries + _decoder_entries("decoder.", "decoder", model.dec_add_res_block)
 
 
 def _get_path(tree: dict, path: str):

@@ -1,5 +1,5 @@
 """TransPose nets on NHWC tensors."""
-from .layers import Conv, GroupNorm, ResBlock, conv_gn
+from .layers import Conv, GroupNorm, MLRConcatenator, MLRSkip, ResBlock, conv_gn
 from .transpose_net import (
     TransPoseDecoder,
     TransPoseEncoder,
@@ -12,6 +12,8 @@ from .transpose_net import (
 __all__ = [
     "Conv",
     "GroupNorm",
+    "MLRConcatenator",
+    "MLRSkip",
     "ResBlock",
     "TransPoseDecoder",
     "TransPoseEncoder",

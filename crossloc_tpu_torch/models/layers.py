@@ -9,6 +9,8 @@ reference state-dict keys, so a `.net` file loads with `strict=True`.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -63,15 +65,37 @@ class ResBlock(nn.Sequential):
     """3x3 -> 1x1 -> 3x3 Conv-GN-ReLU; the caller adds the skip.
 
     A Sequential of (conv, GN, ReLU) x 3 so its keys are the reference's
-    `.0/.1/.3/.4/.6/.7`; the ReLU is fused into the norm."""
+    `.0/.1/.3/.4/.6/.7`; the ReLU is fused into the norm. `in_features`
+    (default `features`) is the first conv's input width."""
 
-    def __init__(self, features: int, num_groups: int = 32):
+    def __init__(self, features: int, num_groups: int = 32, in_features: Optional[int] = None):
         mods = []
-        for k in (3, 1, 3):
-            mods += [*conv_norm_pair(features, features, k, 1, num_groups), nn.ReLU()]
+        for i, k in enumerate((3, 1, 3)):
+            cin = features if i or in_features is None else in_features
+            mods += [*conv_norm_pair(cin, features, k, 1, num_groups), nn.ReLU()]
         super().__init__(*mods)
 
     def forward(self, x):
         for i in (0, 3, 6):
             x = conv_gn(x, self[i], self[i + 1], relu=True)
         return x
+
+
+class MLRConcatenator(ResBlock):
+    """Merge block over the concatenated MLR activations (the JAX package's
+    `MLRConcatenator`): a ResBlock whose first conv takes `in_features`
+    channels; keys `mlr_forward.{0,1,3,4,6,7}` under its parent."""
+
+    def __init__(self, in_features: int, features: int, num_groups: int = 32):
+        super().__init__(features, num_groups, in_features)
+
+
+class MLRSkip(nn.Sequential):
+    """1x1 Conv + GN skip of the MLR merge, no ReLU (applied after the add);
+    keys `mlr_skip.0` / `mlr_skip.1` under its parent."""
+
+    def __init__(self, in_features: int, features: int, num_groups: int = 32):
+        super().__init__(*conv_norm_pair(in_features, features, 1, 1, num_groups))
+
+    def forward(self, x):
+        return conv_gn(x, self[0], self[1], relu=False)

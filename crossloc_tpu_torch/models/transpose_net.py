@@ -1,5 +1,7 @@
 """TransPose encoder/decoder FCN, NHWC in and out (counterpart of
-`crossloc_tpu/models/transpose_net.py`), for `num_mlr=0`.
+`crossloc_tpu/models/transpose_net.py`): one encoder (`num_mlr=0`) or
+`num_mlr` encoder towers merged by the MLR blocks (CrossLoc's finetuned
+decoder over mid-level representations).
 
 Output: [B, H/8, W/8, task + pos] in float32; the last `num_pos_channel`
 channels pass through exp(clip(x, -16.10, 13.82)) into [1e-7, 1e6]. The
@@ -13,9 +15,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import Conv, ResBlock, conv_gn, conv_norm_pair
+from .layers import Conv, GroupNorm, MLRConcatenator, MLRSkip, ResBlock, conv_gn, conv_norm_pair
 
-_MLR_TODO = "num_mlr > 0 (MLR towers) is ROADMAP queue 1, item 10 (finetune + MLR)"
 _DUC_TODO = "fullsize / DUC output is ROADMAP queue 1, item 11 (other tasks and DUC)"
 
 
@@ -117,37 +118,69 @@ class TransPoseDecoder(nn.Module):
 
 
 class TransPoseNet(nn.Module):
-    """Encoder -> decoder for `num_mlr=0`. `dtype` is the compute dtype of
-    the convs and norms (float32 or bfloat16); norm statistics, params and
-    the output stay float32. `stem_s2d` is accepted for flag compatibility:
-    it is an exact re-layout of stems 1+2 in the JAX package, and the port
-    computes the standard stems."""
+    """Encoder -> decoder, or with `num_mlr > 0` that many encoder towers
+    (`mlr_encoder_{i}`) whose outputs are concatenated on the channel axis
+    and merged, `relu(mlr_skip(m) + mlr_forward(mlr_norm(m)))`, before the
+    decoder. Towers from index `num_unfrozen_encoder` on are frozen: their
+    parameters do not require grad and they run under `torch.no_grad()`, so
+    they build no graph and keep no statistics for the backward (the JAX
+    package's `stop_gradient` on their activations).
+
+    `dtype` is the compute dtype of the convs and norms (float32 or
+    bfloat16); norm statistics, params and the output stay float32.
+    `stem_s2d` is accepted for flag compatibility: it is an exact re-layout
+    of stems 1+2 in the JAX package, and the port computes the standard
+    stems."""
 
     def __init__(self, num_task_channel: int = 3, num_pos_channel: int = 1, tiny: bool = False,
                  grayscale: bool = False, enc_add_res_block: int = 2, dec_add_res_block: int = 2,
-                 num_groups: int = 32, num_mlr: int = 0, full_size_output: bool = False,
-                 mean_init: Optional[Sequence[float]] = None, dtype: torch.dtype = torch.float32,
-                 stem_s2d: bool = False):
+                 num_groups: int = 32, num_mlr: int = 0, num_unfrozen_encoder: int = 0,
+                 full_size_output: bool = False, mean_init: Optional[Sequence[float]] = None,
+                 dtype: torch.dtype = torch.float32, stem_s2d: bool = False):
         super().__init__()
-        if num_mlr:
-            raise NotImplementedError(_MLR_TODO)
         if full_size_output:
             raise NotImplementedError(_DUC_TODO)
+        _, wide = _widths(tiny)
         self.num_task_channel = num_task_channel
         self.tiny = tiny
         self.enc_add_res_block = enc_add_res_block
         self.dec_add_res_block = dec_add_res_block
+        self.num_mlr = num_mlr
+        self.num_unfrozen_encoder = num_unfrozen_encoder
         self.dtype = dtype
-        self.encoder = TransPoseEncoder(1 if grayscale else 3, tiny, enc_add_res_block,
-                                        num_groups)
+        in_ch = 1 if grayscale else 3
+        if num_mlr == 0:
+            self.encoder = TransPoseEncoder(in_ch, tiny, enc_add_res_block, num_groups)
+        else:
+            for i in range(1, num_mlr + 1):
+                tower = TransPoseEncoder(in_ch, tiny, enc_add_res_block, num_groups)
+                self.add_module(f"mlr_encoder_{i}", tower.requires_grad_(i <= num_unfrozen_encoder))
+            cat = wide * num_mlr
+            self.mlr_skip = MLRSkip(cat, wide, num_groups)
+            self.mlr_norm = GroupNorm(min(num_groups, cat), cat)
+            self.mlr_forward = MLRConcatenator(cat, wide, num_groups)
         self.decoder = TransPoseDecoder(num_task_channel, num_pos_channel, tiny,
                                         dec_add_res_block, num_groups, mean_init)
         # top-level duplicate of decoder.mean, as in the reference state dict
         self.register_buffer("mean", self.decoder.mean.clone())
 
+    def towers(self):
+        """The MLR encoder towers, in order."""
+        return [getattr(self, f"mlr_encoder_{i}") for i in range(1, self.num_mlr + 1)]
+
     def forward(self, x):
         """[B, H, W, C] images -> [B, H/8, W/8, task + pos] float32."""
-        return self.decoder(self.encoder(x.to(self.dtype)))
+        x = x.to(self.dtype)
+        if self.num_mlr == 0:
+            return self.decoder(self.encoder(x))
+        acts = []
+        for i, tower in enumerate(self.towers()):
+            with torch.set_grad_enabled(torch.is_grad_enabled() and i < self.num_unfrozen_encoder):
+                acts.append(tower(x))
+        mlr = torch.cat(acts, dim=-1)  # [B, h, w, wide * num_mlr], contiguous NHWC
+        res = self.mlr_skip(mlr)
+        mlr = self.mlr_forward(self.mlr_norm(mlr, relu=False))
+        return self.decoder(torch.relu(res + mlr))
 
 
 def task_channels(task: str) -> int:
@@ -160,10 +193,11 @@ def task_channels(task: str) -> int:
 
 def build_network(task: str, uncertainty: Optional[str] = None, tiny: bool = False,
                   grayscale: bool = False, fullsize: bool = False, num_mlr: int = 0,
-                  mean: Optional[Sequence[float]] = None, dtype: torch.dtype = torch.float32,
-                  stem_s2d: bool = False) -> TransPoseNet:
+                  num_unfrozen_encoder: int = 0, mean: Optional[Sequence[float]] = None,
+                  dtype: torch.dtype = torch.float32, stem_s2d: bool = False) -> TransPoseNet:
     """`config_network` factory: enc/dec_add_res_block=2, +1 positive
-    channel iff MLE uncertainty."""
+    channel iff MLE uncertainty; `num_mlr` towers of which the first
+    `num_unfrozen_encoder` train."""
     if uncertainty not in (None, "MLE"):
         raise NotImplementedError(f"uncertainty={uncertainty}")
     if task == "semantics" and uncertainty is not None:
@@ -176,6 +210,7 @@ def build_network(task: str, uncertainty: Optional[str] = None, tiny: bool = Fal
         tiny=tiny,
         grayscale=grayscale,
         num_mlr=num_mlr,
+        num_unfrozen_encoder=num_unfrozen_encoder,
         full_size_output=fullsize,
         mean_init=mean,
         dtype=dtype,

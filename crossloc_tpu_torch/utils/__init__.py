@@ -1,5 +1,6 @@
 """Logging, output directories and resume bookkeeping."""
 from .io import (
+    check_encoders,
     config_directory,
     config_log,
     get_epoch_from_dirname,
@@ -10,6 +11,7 @@ from .io import (
 )
 
 __all__ = [
+    "check_encoders",
     "config_directory",
     "config_log",
     "get_epoch_from_dirname",

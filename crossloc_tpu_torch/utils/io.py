@@ -7,6 +7,7 @@
     newest of model{,_auto_resume,_epoch_plus_resume,_resume}.net;
     `--epoch_plus` finds the finished sibling run with the largest -eN.
   * `config_log`: file + stdout logging in the reference's line format.
+  * `check_encoders`: the finetune CLI's encoder weights, coord first.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import re
 import shutil
 import subprocess
 import sys
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -223,3 +224,29 @@ def config_log(opt, output_dirname: str) -> Tuple[str, str]:
     logging.info("Saving model to {:s}".format(output_dir))
     logging.info("Saving checkpoint model to {:s}".format(ckpt_output_dir))
     return output_dir, ckpt_output_dir
+
+
+def check_encoders(encoders: list, coord_weight: Optional[str], depth_weight: Optional[str],
+                   normal_weight: Optional[str], semantics_weight: Optional[str]) -> List[str]:
+    """The weight paths of the named encoders: each task once, coord first,
+    then the others sorted. Raises on an unknown task, a missing coord
+    encoder or a weight file that does not exist."""
+    for entry in encoders:
+        if entry not in ("coord", "depth", "normal", "semantics"):
+            raise ValueError(f"encoder model {entry} is not supported!")
+    if "coord" not in encoders:
+        raise ValueError(
+            "A coordinate regression network weight must be provided for decoder initialization!")
+    by_task = {"coord": coord_weight, "depth": depth_weight, "normal": normal_weight,
+               "semantics": semantics_weight}
+    paths = []
+    for entry in sorted(set(encoders)):
+        w = by_task[entry]
+        if w is None or not os.path.exists(w):
+            raise FileNotFoundError(f"weight for encoder '{entry}' not found: {w}")
+        if entry == "coord":
+            paths.insert(0, w)
+        else:
+            paths.append(w)
+    safe_printout("{:d} network weights are to be loaded for reuse".format(len(paths)))
+    return paths

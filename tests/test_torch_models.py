@@ -119,7 +119,7 @@ def test_jax_saved_net_loads_strictly(tmp_path, full_params):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        models.build_network("coord", "MLE", num_mlr=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        models.build_network("coord", "MLE", num_mlr=2, fullsize=True)
     with pytest.raises(NotImplementedError, match="item 11"):
         models.build_network("depth", "MLE", fullsize=True)
