@@ -11,9 +11,12 @@ Phases:
            its planner picks and in the three-pass design, and once with
            |mean|/std = 1000; the MLR merge norm at C=1536 and 2048; K1's
            backward at the training batch and at the finetune batch, with
-           C=1536) and time them: device time from CUDA graphs with the L2
-           evicted between calls, and host-inclusive call time, the two K1
-           designs in turns (three-pass, planned, planned, three-pass),
+           C=1536 and 2048, in the design its planner picks and in the
+           four-kernel design, and once with |mean|/std = 1000) and time
+           them: device time from CUDA graphs with the L2 evicted between
+           calls, and host-inclusive call time, the two designs of K1 and
+           of K1-bwd in turns (three-pass or four-kernel, planned, planned,
+           three-pass or four-kernel),
            beside the plain version, one PyTorch library call and the bytes
            bound; totals over one forward / step of the coord net (28 calls)
            and of the finetune path (67 K1, 33 K1-bwd);
@@ -327,54 +330,62 @@ class Smoke:
             name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:57",
             max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
-            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
+            three_pass_ms=f32["three_pass_ms"])
         self._backward_kernel(flush)
 
     def _backward_kernel(self, flush):
         """K1's backward at the coord net's shapes at B=TRAIN_BATCH (the
-        28-call totals) and at the finetune path's at B=FT_BATCH (C=1536
-        among them; the 33-call totals)."""
+        28-call totals) and at the finetune path's and the MLR widths' at
+        B=FT_BATCH (the 33-call totals), both designs, and at |mu|/std =
+        1000."""
         shapes = [s[:4] for s in GN_PATH_SHAPES]
         rows, worst = self._backward_rows(flush, TRAIN_BATCH, shapes, seed=1)
-        ft_rows, ft_worst = self._backward_rows(flush, FT_BATCH, [s[:4] for s in FT_PATH_SHAPES],
-                                                seed=2)
-        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        ft_shapes = [s[:4] for s in FT_PATH_SHAPES] + [s[:4] for s in MLR_SHAPES[1:]]
+        ft_rows, ft_worst = self._backward_rows(flush, FT_BATCH, ft_shapes, seed=2)
+        self._large_mean_backward_check()
+        keys = ("ms", "four_kernel_ms", "plain_ms", "library_ms", "bound_ms")
         tot = {d: {k: sum(c * r[k] for r in rows for (C, H, W, relu, c) in GN_PATH_SHAPES
                           if r["dtype"] == d and (r["C"], r["relu"]) == (C, relu)) for k in keys}
                for d in ("float32", "bfloat16")}
         ft = _path_totals(ft_rows, 5, keys)
         with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows + ft_rows,
-                           per_step=tot, per_finetune_step=ft), f, indent=1)
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
+                           rows=rows + ft_rows, per_step=tot, per_finetune_step=ft), f, indent=1)
         for dname, t in tot.items():
             log(f"K1-bwd over one {dname} training step's 28 calls (B={TRAIN_BATCH}, 480x720), "
-                f"device time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
         for dname, t in ft.items():
             log(f"K1-bwd over one {dname} finetune step's {FT_BWD} calls (B={FT_BATCH}, 480x720), "
-                f"device time: {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+                f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
         self.kernels["groupnorm_backward"] = dict(
             name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:141",
             max_abs_err=max(worst, ft_worst), ms=f32["ms"], plain_ms=f32["plain_ms"],
-            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes")
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
+            four_kernel_ms=f32["four_kernel_ms"])
 
     def _backward_rows(self, flush, B, shapes, seed):
         """K1's backward at each (C, H, W, relu) of `shapes`, batch B, f32 and
-        bf16, ReLU on and off, against the autograd of the plain twin, and
-        timed at the path's ReLU: device time (CUDA graphs, L2 evicted), call
-        time, the plain twin (host-inclusive events: its autograd is not
-        captured in a graph), the library's two calls (threshold_backward +
-        native_group_norm_backward on NCHW copies, its own layout) and the
-        bytes bound (x and dy read once, dx written once). Returns (rows,
-        worst f32 |dx - plain|)."""
+        bf16, ReLU on and off, in the design `_plan_backward` picks and in
+        the four-kernel design, each against the autograd of the plain twin,
+        and timed at the path's ReLU: device time (CUDA graphs, L2 evicted)
+        and call time of the two designs in turns (four-kernel, planned,
+        planned, four-kernel), the plain twin (host-inclusive events: its
+        autograd is not captured in a graph), the library's two calls
+        (threshold_backward + native_group_norm_backward on NCHW copies, its
+        own layout) and the bytes bound (x and dy read once, dx written
+        once). Returns (rows, worst f32 |dx - plain| of the planned design)."""
         import torch
 
         from crossloc_tpu_torch.ops import (group_norm_relu_backward,
                                             group_norm_relu_backward_plain, group_norm_relu_plain)
-        from crossloc_tpu_torch.ops.groupnorm import _launch
+        from crossloc_tpu_torch.ops.groupnorm import _four_kernel_backward, _launch, _plan_backward
 
         gen = torch.Generator(device="cuda").manual_seed(seed)
         rows, worst = [], 0.0
@@ -382,6 +393,7 @@ class Smoke:
             G = min(32, C)
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype)[6:]
+                plan = _plan_backward(B, H, W, C, G, dtype)
                 x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
                 scale = torch.randn(C, device="cuda", generator=gen)
                 bias = torch.randn(C, device="cuda", generator=gen)
@@ -395,36 +407,42 @@ class Smoke:
                 for relu in (True, False):
                     stats = torch.empty(B, G, 2, device="cuda")
                     _launch(x, scale, bias, G, 1e-5, relu, stats)  # the forward writes them
-                    got = group_norm_relu_backward(x, scale, bias, stats, dy, G, relu)
                     ref = group_norm_relu_backward_plain(x, scale, bias, dy, G, 1e-5, relu)
-                    torch.cuda.synchronize()
-                    # f32: dx within 1e-4 * max|ref| + 1e-4 * |ref|, dscale and
-                    # dbias within 1e-4 * max|ref| (fp32 sums in another
-                    # order); bf16: one bf16 ulp of dx (2^-7 * |ref|) beyond
-                    # that (both sides round an fp32 dx to bf16)
-                    rel = 1e-4 + (2.0**-7 if dtype == torch.bfloat16 else 0.0)
-                    errs, ok = [], True
-                    for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
-                        a, r = a.float(), r.float()
-                        err = (a - r).abs()
-                        lim = 1e-4 * r.abs().max() + (rel * r.abs() if name == "dx" else 0.0)
-                        ok = ok and bool((err <= lim).all())
-                        errs.append(float(err.max()))
-                    if dtype == torch.float32:
-                        worst = max(worst, errs[0])
-                    log(f"  K1-bwd C={C} {H}x{W} B={B} {dname} relu={relu}: max_abs_err dx "
-                        f"{errs[0]:.3e} (max|dx| {float(ref[0].float().abs().max()):.3e}), "
-                        f"dscale {errs[1]:.3e}, dbias {errs[2]:.3e} {'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"K1-bwd disagrees with plain at C={C} {H}x{W} "
-                                             f"{dtype} relu={relu}")
-                    del got, ref
+                    for design, fn in (("planned", group_norm_relu_backward),
+                                       ("four_kernel", _four_kernel_backward)):
+                        got = fn(x, scale, bias, stats, dy, G, relu)
+                        torch.cuda.synchronize()
+                        # f32: dx within 1e-4 * max|ref| + 1e-4 * |ref|, dscale
+                        # and dbias within 1e-4 * max|ref| (fp32 sums in another
+                        # order); bf16: one bf16 ulp of dx (2^-7 * |ref|) beyond
+                        # that (both sides round an fp32 dx to bf16)
+                        rel = 1e-4 + (2.0**-7 if dtype == torch.bfloat16 else 0.0)
+                        errs, ok = [], True
+                        for name, a, r in zip(("dx", "dscale", "dbias"), got, ref):
+                            a, r = a.float(), r.float()
+                            err = (a - r).abs()
+                            lim = 1e-4 * r.abs().max() + (rel * r.abs() if name == "dx" else 0.0)
+                            ok = ok and bool((err <= lim).all())
+                            errs.append(float(err.max()))
+                        if dtype == torch.float32 and design == "planned":
+                            worst = max(worst, errs[0])
+                        name = plan.design if design == "planned" else "four_kernel"
+                        log(f"  K1-bwd {name} C={C} {H}x{W} B={B} {dname} relu={relu}: max_abs_err "
+                            f"dx {errs[0]:.3e} (max|dx| {float(ref[0].float().abs().max()):.3e}), "
+                            f"dscale {errs[1]:.3e}, dbias {errs[2]:.3e} {'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError(f"K1-bwd {name} disagrees with plain at C={C} "
+                                                 f"{H}x{W} {dtype} relu={relu}")
+                        del got
+                    del ref
                 relu = relu_path
                 stats = torch.empty(B, G, 2, device="cuda")
                 _launch(x, scale, bias, G, 1e-5, relu, stats)
-                kernel = lambda: group_norm_relu_backward(x, scale, bias, stats, dy, G, relu)
-                dev = device_ms([kernel, kernel], flush)
-                call = cuda_ms(kernel, self.iters)
+                planned = lambda: group_norm_relu_backward(x, scale, bias, stats, dy, G, relu)
+                four = lambda: _four_kernel_backward(x, scale, bias, stats, dy, G, relu)
+                # in turns: four-kernel, planned, planned, four-kernel
+                dev = device_ms([four, planned, planned, four], flush)
+                call = [cuda_ms(f, self.iters) for f in (four, planned, planned, four)]
                 plain = cuda_ms(lambda: group_norm_relu_backward_plain(
                     x, scale, bias, dy, G, 1e-5, relu), iters=3, warmup=1)
                 xc = x.permute(0, 3, 1, 2).contiguous()
@@ -442,16 +460,74 @@ class Smoke:
                 (lib,) = device_ms([lib_call], flush, n=5)
                 nbytes = 3 * x.numel() * x.element_size() + (4 * C + 2 * B * G) * 4
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 12 * x.numel() / FP32_FLOPS)
-                row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, ms=sum(dev) / 2,
-                           turns_ms=dev, call_ms=call, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound)
+                row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, design=plan.design,
+                           cluster=plan.cluster, cb=plan.cb, smem_bytes=plan.smem_bytes,
+                           ms=(dev[1] + dev[2]) / 2, four_kernel_ms=(dev[0] + dev[3]) / 2,
+                           turns_ms=dev, call_ms=(call[1] + call[2]) / 2,
+                           four_kernel_call_ms=(call[0] + call[3]) / 2, turns_call_ms=call,
+                           plain_ms=plain, library_ms=lib, bound_ms=bound)
                 rows.append(row)
-                log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu}: device "
-                    f"{row['ms']:.4f} ms (turns {dev[0]:.4f}/{dev[1]:.4f}), call {call:.4f} ms, "
-                    f"plain {plain:.4f} ms, library {lib:.4f} ms, bytes bound {bound:.4f} ms "
+                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.smem_bytes} B smem"
+                         if plan.design == "cluster" else "four_kernel")
+                log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu} [{where}]: device "
+                    f"{row['ms']:.4f} ms (four-kernel {row['four_kernel_ms']:.4f}; turns "
+                    + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
+                    f"(four-kernel {row['four_kernel_call_ms']:.4f}), plain {plain:.4f} ms, "
+                    f"library {lib:.4f} ms, bytes bound {bound:.4f} ms "
                     f"(bound / device = {bound / row['ms']:.1%})")
                 del x, dy, xc, dyc, out, yl
         return rows, worst
+
+    def _large_mean_backward_check(self):
+        """K1-bwd on an f32 input with mean 1000 and std 1 at the 512-channel
+        path shape (the cluster design), ReLU on and off, each design
+        against the float64 autograd: per tensor within today's f32
+        tolerance plus the plain twin's own largest distance from float64."""
+        import torch
+
+        from crossloc_tpu_torch.ops import group_norm_relu_backward_plain, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import (_four_kernel_backward, _launch,
+                                                      _plan_backward, group_norm_relu_backward)
+
+        C, H, W, G, mean = 512, 60, 90, 32, 1000.0
+        if _plan_backward(BATCH, H, W, C, G, torch.float32).design != "cluster":
+            raise AssertionError("the |mu|/std = 1000 shape does not take the cluster design")
+        gen = torch.Generator(device="cuda").manual_seed(12)
+        x = torch.randn(BATCH, H, W, C, device="cuda", generator=gen) + mean
+        scale = torch.randn(C, device="cuda", generator=gen)
+        bias = torch.randn(C, device="cuda", generator=gen)
+        pre = group_norm_relu_plain(x, scale, bias, G, 1e-5, False)
+        dy = torch.randn(x.shape, device="cuda", generator=gen) * (pre.abs() > 1e-3)
+        del pre
+        for relu in (True, False):
+            leaves = [t.double().requires_grad_() for t in (x, scale, bias)]
+            xd = leaves[0].reshape(BATCH, H * W, G, C // G)
+            mu = xd.mean(dim=(1, 3), keepdim=True)
+            var = (xd - mu).square().mean(dim=(1, 3), keepdim=True)
+            y = ((xd - mu) / torch.sqrt(var + 1e-5)).reshape(x.shape) * leaves[1] + leaves[2]
+            exact = torch.autograd.grad(torch.relu(y) if relu else y, leaves, dy.double())
+            del leaves, xd, mu, var, y
+            plain = group_norm_relu_backward_plain(x, scale, bias, dy, G, 1e-5, relu)
+            stats = torch.empty(BATCH, G, 2, device="cuda")
+            _launch(x, scale, bias, G, 1e-5, relu, stats)
+            for name, fn in (("cluster", group_norm_relu_backward),
+                             ("four_kernel", _four_kernel_backward)):
+                got = fn(x, scale, bias, stats, dy, G, relu)
+                torch.cuda.synchronize()
+                msgs, ok = [], True
+                for t, a, p, e in zip(("dx", "dscale", "dbias"), got, plain, exact):
+                    e_k = (a.double() - e).abs()
+                    e_p = float((p.double() - e).abs().max())
+                    lim = 1e-4 * e.abs().max() + (1e-4 * e.abs() if t == "dx" else 0.0) + e_p
+                    ok = ok and bool((e_k <= lim).all())
+                    msgs.append(f"{t} {float(e_k.max()):.3e} (plain {e_p:.3e}, max|f64| "
+                                f"{float(e.abs().max()):.3e})")
+                log(f"  K1-bwd {name} |mu|/std=1000 C={C} {H}x{W} B={BATCH} f32 relu={relu}: "
+                    f"max|K1-bwd - f64| " + ", ".join(msgs) + " (limit: 1e-4*max|f64| [+ "
+                    f"1e-4*|f64| for dx] + max|plain - f64|) " + ("ok" if ok else "FAIL"))
+                if not ok:
+                    raise AssertionError(f"K1-bwd {name} loses precision at |mu|/std = 1000")
+                del got
 
     def _large_mean_check(self):
         """f32 input with mean 1000 and std 1 at the 512-channel path shape:
@@ -1218,14 +1294,12 @@ class Smoke:
 
     def kernels_line(self) -> str:
         """The kernels JSON line: `launches` sums each main path's counted run
-        (`launches_by_path` lists them); times are the 28-call totals."""
-        keys = ("name", "route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")
+        (`launches_by_path` lists them); times are the 28-call totals, beside
+        them the other design's (`three_pass_ms`, `four_kernel_ms`)."""
         out = []
         for name, v in self.kernels.items():
             by_path = {p: n[name] for p, n in self.launches.items() if name in n}
-            out.append(dict({k: v[k] for k in keys}, launches=sum(by_path.values()),
-                            launches_by_path=by_path))
+            out.append(dict(v, launches=sum(by_path.values()), launches_by_path=by_path))
         return json.dumps({"kernels": out})
 
 

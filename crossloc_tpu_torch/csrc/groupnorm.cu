@@ -59,14 +59,41 @@
 //
 // Backward (gnb_* kernels; the TPU package has none: its _bwd,
 // pallas_groupnorm.py:141, recomputes through the plain reference with
-// jax.vjp). With xhat = (x - mu) * r, pre = (x - mu) * (gamma * r) + beta
+// jax.vjp). No statistics are recomputed: the forward's (mu, r = rstd) are
+// read. With xhat = (x - mu) * r, pre = (x - mu) * (gamma * r) + beta
 // computed as the forward computes it (so the ReLU mask m = [pre > 0] has
 // the forward's bits; a tie pre == 0 gives 0, as torch.relu does), and
 // gh = dy * m:
 //   dbeta_c = sum gh, dgamma_c = sum gh * xhat   (over the batch and H*W)
-//   dx = r * (gamma * gh - mean_g(gamma * gh) - xhat * mean_g(gamma * gh * xhat))
+//   dx = (gamma * r) * gh - r * c1 - (x - mu) * r^2 * c2,
+//   c1 = mean_g(gamma * gh), c2 = mean_g(gamma * gh * xhat)
 // Bound: memory bandwidth, as the forward; the least traffic is one read of
-// x and dy and one write of dx. This first design reads x and dy twice:
+// x and dy and one write of dx. Two designs, chosen per shape by
+// ops/groupnorm.py::_plan_backward:
+//
+// 1. Cluster design (gnb_cluster_kernel + gnb_batch_sums_kernel): x and dy
+//    read once. One cluster per (image, channel block), the forward's
+//    channel block; each CTA holds its rows of x and of dy in shared memory
+//    (two 3D tensor maps, one mbarrier per box pair, all boxes in flight).
+//    As the boxes land each CTA sums gh and gh * xhat per channel in fp32,
+//    pushes the 2 * cb sums into every peer's shared memory, and after one
+//    cluster barrier every CTA adds the ranks in rank order (the same bits
+//    in all of them), forms c1 and c2 per group, and writes dx from shared
+//    memory with 16-byte stores. Rank 0 writes the image's per-channel sums
+//    to a scratch [B, 2, C]; a small second kernel adds the images in order
+//    into dgamma and dbeta. Taken where x + dy of one (image, channel block)
+//    fits 8 CTAs (two to an SM where they fit: the 25 layers at 60x90 of
+//    the coord net), else a non-portable cluster of 16 CTAs of one SM each
+//    (stem3; C=1536 and 2048 in f32), at most 200 KB of slab a CTA.
+//    What bounds it on an H100: as in the forward's cluster design, the
+//    sums, the cluster barrier and the merge leave the device memory idle
+//    between a CTA's loads and its stores, which a second CTA on the SM
+//    covers only in part (55-71 % of the bytes bound in f32, 46-66 % in
+//    bf16 at the main path's shapes; PERF.md).
+// 2. Four-kernel design, for slabs larger than 16 CTAs hold (stem1 and
+//    stem2 at 480x720 and 240x360). x and dy read twice, so at most 3/5 of
+//    the bytes bound; at the stems it streams at about 90 % of HBM
+//    bandwidth (PERF.md):
 //   (a) gnb_partials: per (image, chunk of H*W rows), per channel, fp32 sums
 //       of gh and gh * xhat into scratch [B, chunks, 2, C];
 //   (b) gnb_image_sums: per (image, channel), the chunks summed in order;
@@ -74,11 +101,11 @@
 //       per-channel table [B, 5, C] for (d); one more row of blocks sums
 //       dgamma and dbeta over the images in order;
 //   (d) gnb_apply: dx over contiguous NHWC, 16-byte loads and stores.
-// No float atomics: every sum has a fixed order, so dx, dgamma and dbeta
-// have the same bits from run to run.
+// Neither uses float atomics: every sum has a fixed order, so dx, dgamma
+// and dbeta have the same bits from run to run.
 //
-// Plain C interface (bound with ctypes). The caller allocates y (and, for the
-// three-pass design, the scratch); each function launches on the given
+// Plain C interface (bound with ctypes). The caller allocates the outputs
+// and the scratch; each function launches on the given
 // stream, does not synchronise, and returns the first error (0 when every
 // launch was accepted; CUDA's codes, or a negative code of this file that
 // crossloc_cuda_error_string names).
@@ -338,6 +365,7 @@ cudaError_t launch_three_pass(const void* x, void* y, const float* gamma, const 
 
 constexpr int kClusterThreads = 256;   // upper bound; the launch uses vpr * (256 / vpr)
 constexpr int kMaxCluster = 8;         // portable cluster size
+constexpr int kMaxClusterBackward = 16;  // non-portable; H100 allows it on request
 constexpr int kMaxDynSmem = 232448;    // 227 KB, the most one block may ask for
 
 // Errors of this file, beside CUDA's own codes.
@@ -384,22 +412,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// Row slots left after a warp's shuffles (see block_group_sums).
+// Row slots left after a warp's shuffles (see stage_slots).
 __device__ __forceinline__ int red_slots(int vpr) {
   return (32 % vpr) == 0 ? blockDim.x >> 5 : blockDim.x / vpr;
 }
 
-// Per-group sums over the block, for NA arrays of per-thread partials: each
+// First stage of the block sums, for NA arrays of per-thread partials: each
 // thread holds V partials for the V channels of its column cv (channels
-// cv*V .. cv*V+V-1 of the block); out[a * out_stride + g] receives array a's
-// sum over group g. Fixed order, so every CTA that holds the same partials
-// gets the same bits. Ends with __syncthreads, so `red` may be reused.
+// cv*V .. cv*V+V-1 of the block). Leaves red[a * red_slots * cb + j * cb + c]
+// = array a's partial of row slot j at channel c, then __syncthreads.
 template <int V, int NA>
-__device__ __forceinline__ void block_group_sums(float (&acc)[NA][V], float* red, float* out,
-                                                 int out_stride, int vpr, int cb, int gs) {
+__device__ __forceinline__ void stage_slots(float (&acc)[NA][V], float* red, int vpr, int cb) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nslots = red_slots(vpr);
-  const int n_red = nslots * cb;  // floats per array in red
+  const int n_red = red_slots(vpr) * cb;  // floats per array in red
   if ((32 % vpr) == 0) {
     // vpr is a power of two <= 32 and blockDim.x a multiple of 32: lanes
     // lane ^ o for o >= vpr hold the same column, so shuffles first merge a
@@ -425,6 +450,17 @@ __device__ __forceinline__ void block_group_sums(float (&acc)[NA][V], float* red
       for (int k = 0; k < V; ++k) red[a * n_red + tid * V + k] = acc[a][k];
   }
   __syncthreads();
+}
+
+// Per-group sums over the block: out[a * out_stride + g] receives array a's
+// sum over group g. Fixed order, so every CTA that holds the same partials
+// gets the same bits. Ends with __syncthreads, so `red` may be reused.
+template <int V, int NA>
+__device__ __forceinline__ void block_group_sums(float (&acc)[NA][V], float* red, float* out,
+                                                 int out_stride, int vpr, int cb, int gs) {
+  stage_slots<V, NA>(acc, red, vpr, cb);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nslots = red_slots(vpr), n_red = nslots * cb;
   // one full warp per (array, group): lane l sums the slots of the group's
   // channels l, l + 32, ..., then a shuffle tree
   const int ng = cb / gs, nwarps = blockDim.x >> 5;
@@ -439,6 +475,22 @@ __device__ __forceinline__ void block_group_sums(float (&acc)[NA][V], float* red
       for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (lane == 0) out[a * out_stride + g] = s;
     }
+  }
+  __syncthreads();
+}
+
+// Per-channel sums over the block: out[a * cb + c] receives array a's sum at
+// channel c, the row slots added in order. Ends with __syncthreads.
+template <int V, int NA>
+__device__ __forceinline__ void block_channel_sums(float (&acc)[NA][V], float* red, float* out,
+                                                   int vpr, int cb) {
+  stage_slots<V, NA>(acc, red, vpr, cb);
+  const int nslots = red_slots(vpr), n_red = nslots * cb;
+  for (int i = threadIdx.x; i < NA * cb; i += blockDim.x) {
+    const float* ra = red + (i / cb) * n_red + i % cb;
+    float s = 0.f;
+    for (int j = 0; j < nslots; ++j) s += ra[j * cb];
+    out[i] = s;
   }
   __syncthreads();
 }
@@ -654,12 +706,61 @@ int encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int HW, int 
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
 
-// configurations whose cluster occupancy was checked, per kernel instance
-// (and devices whose shared-memory limit was raised)
+// A cluster launch: cs CTAs a cluster along x, `threads` a CTA, `smem` bytes
+// of dynamic shared memory each (not copyable: cfg points into attr).
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  ClusterLaunch(dim3 grid, int cs, int threads, int smem, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// configurations whose cluster occupancy was checked
 struct Checked {
+  const void* kernel;
   int dev, cs, threads, smem;
 };
 constexpr int kMaxChecked = 256;
+
+// Before the first launch of `kernel` in a configuration on this device:
+// raise its shared-memory limit to 227 KB and check that at least one
+// cluster of this size and shared memory fits the card.
+int ready_cluster(const void* kernel, const ClusterLaunch& launch, int cs) {
+  static Checked checked[kMaxChecked];
+  static int n_checked = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const Checked key{kernel, dev, cs, static_cast<int>(launch.cfg.blockDim.x),
+                    static_cast<int>(launch.cfg.dynamicSmemBytes)};
+  for (int i = 0; i < n_checked; ++i)
+    if (checked[i].kernel == key.kernel && checked[i].dev == dev && checked[i].cs == cs &&
+        checked[i].threads == key.threads && checked[i].smem == key.smem)
+      return 0;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (err != cudaSuccess) return err;
+  if (cs > kMaxCluster) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  int n_clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &launch.cfg);
+  if (err != cudaSuccess) return err;
+  if (n_clusters < 1) return kErrNoCluster;
+  if (n_checked < kMaxChecked) checked[n_checked++] = key;
+  return 0;
+}
 
 template <typename T>
 int launch_cluster(const void* x, void* y, const float* gamma, const float* beta, float* stats,
@@ -670,50 +771,15 @@ int launch_cluster(const void* x, void* y, const float* gamma, const float* beta
   if (cluster_smem_bytes(sizeof(T), V, cb, gs, box_rows, nbox, threads, cs) > (size_t)smem ||
       smem > kMaxDynSmem || cs > kMaxCluster)
     return kErrSmemPlan;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-
-  static Checked checked[kMaxChecked];
-  static int n_checked = 0;
-  static unsigned raised = 0;  // bit per device: shared-memory limit raised
-  if (dev < 32 && !(raised & (1u << dev))) {
-    err = cudaFuncSetAttribute(gn_cluster_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxDynSmem);
-    if (err != cudaSuccess) return err;
-    raised |= 1u << dev;
-  }
-
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cs * (C / cb), B, 1);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-
-  bool seen = false;
-  for (int i = 0; i < n_checked && !seen; ++i)
-    seen = checked[i].dev == dev && checked[i].cs == cs && checked[i].threads == threads &&
-           checked[i].smem == smem;
-  if (!seen) {
-    int n_clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&n_clusters, gn_cluster_kernel<T>, &cfg);
-    if (err != cudaSuccess) return err;
-    if (n_clusters < 1) return kErrNoCluster;
-    if (n_checked < kMaxChecked) checked[n_checked++] = Checked{dev, cs, threads, smem};
-  }
-
-  CUtensorMap xmap;
-  const int e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows);
+  const ClusterLaunch launch(dim3(cs * (C / cb), B, 1), cs, threads, smem, stream);
+  int e = ready_cluster(reinterpret_cast<const void*>(gn_cluster_kernel<T>), launch, cs);
   if (e != 0) return e;
-  err = cudaLaunchKernelEx(&cfg, gn_cluster_kernel<T>, xmap, static_cast<T*>(y), gamma, beta,
-                           stats, HW, C, gs, cb, rows_per_cta, box_rows, nbox, eps, relu);
+  CUtensorMap xmap;
+  e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows);
+  if (e != 0) return e;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&launch.cfg, gn_cluster_kernel<T>, xmap, static_cast<T*>(y), gamma, beta,
+                         stats, HW, C, gs, cb, rows_per_cta, box_rows, nbox, eps, relu);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -949,6 +1015,220 @@ cudaError_t launch_backward(const void* x, const void* dy, const float* gamma, c
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Backward, cluster design
+// ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ size_t round_up(size_t n, size_t to) {
+  return (n + to - 1) / to * to;
+}
+
+// One cluster of `cs` CTAs per (image, channel block of cb channels), as
+// gn_cluster_kernel; each CTA holds its rows of x and of dy. Writes dx, and
+// (rank 0 of each cluster) sums[b, 0, c] = sum gh and sums[b, 1, c] =
+// sum gh * xhat over the image.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads)
+    gnb_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap dymap, T* __restrict__ dx,
+                       const float* __restrict__ gamma, const float* __restrict__ beta,
+                       const float* __restrict__ stats, float* __restrict__ sums, int HW, int C,
+                       int gs, int cb, int rows_per_cta, int box_rows, int nbox, int relu) {
+  constexpr int V = Vec<T>::N;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int c0 = (blockIdx.x / cs) * cb;
+  const int b = blockIdx.y;
+  const int row0 = rank * rows_per_cta;
+  const int nrows = max(0, min(rows_per_cta, HW - row0));
+  const int nbox_live = (nrows + box_rows - 1) / box_rows;
+  const int vpr = cb / V;                 // 16-byte vectors per row
+  const int rslots = blockDim.x / vpr;    // rows processed side by side
+  const int cv = tid % vpr;               // this thread's column of vectors
+  const int slot = tid / vpr;
+  const int ng = cb / gs, G = C / gs;
+
+  // shared memory: [x slab | dy slab | mbarriers | red | part | xch | csum | coef]
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (128u - (smem_addr(smem_raw) & 127u)) & 127u;
+  const int box_elems = box_rows * cb;
+  const size_t slab_bytes = (size_t)nbox * box_elems * sizeof(T);
+  T* xs = reinterpret_cast<T*>(smem_raw + pad);
+  T* ds = reinterpret_cast<T*>(smem_raw + pad + round_up(slab_bytes, 128));
+  uint64_t* mbar =
+      reinterpret_cast<uint64_t*>(smem_raw + pad + round_up(slab_bytes, 128) +
+                                  round_up(slab_bytes, 16));
+  float* red = reinterpret_cast<float*>(mbar + nbox);  // 2 * red_slots * cb
+  float* part = red + 2 * red_slots(vpr) * cb;  // 2 * cb: this CTA's sums per channel
+  float* xch = part + 2 * cb;             // cs * 2 * cb: every rank's, pushed by each
+  float* csum = xch + 2 * cb * cs;        // 2 * cb: the image's sums per channel
+  float* coef = csum + 2 * cb;            // 2 * ng: r * c1 and r^2 * c2 per group
+
+  if (tid == 0) {
+    for (int k = 0; k < nbox_live; ++k) mbar_init(&mbar[k], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const uint32_t box_bytes = static_cast<uint32_t>(box_elems * sizeof(T));
+    for (int k = 0; k < nbox_live; ++k) {
+      // one barrier per box pair; rows past HW are zero-filled and still
+      // counted in the box's bytes
+      mbar_expect_tx(&mbar[k], 2 * box_bytes);
+      const int row = row0 + k * box_rows;
+      tma_load_3d(xs + (size_t)k * box_elems, &xmap, c0, row, b, &mbar[k]);
+      tma_load_3d(ds + (size_t)k * box_elems, &dymap, c0, row, b, &mbar[k]);
+    }
+  }
+  __syncthreads();
+  // waited before the first write to a peer: every CTA of the cluster runs
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+
+  // the forward's per-channel constants: a = gamma * r is its product, so
+  // pre = fmaf(x - mu, a, beta) and the ReLU mask have its bits
+  float mu[V], r[V], a[V], be[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int c = c0 + cv * V + k;
+    const float* st = stats + ((size_t)b * G + c / gs) * 2;
+    mu[k] = st[0];
+    r[k] = st[1];
+    a[k] = gamma[c] * r[k];
+    be[k] = beta[c];
+  }
+
+  // sums over this CTA's rows, each box as it lands
+  float acc[2][V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[0][k] = acc[1][k] = 0.f;
+  for (int bx = 0; bx < nbox_live; ++bx) {
+    mbar_wait(&mbar[bx], 0);
+    const int r_end = min(box_rows, nrows - bx * box_rows);
+    const size_t at = (size_t)bx * box_elems + cv * V;
+#pragma unroll 4
+    for (int row = slot; row < r_end; row += rslots) {
+      float v[V], g[V];
+      load_vec(xs + at + row * cb, v);
+      load_vec(ds + at + row * cb, g);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = v[k] - mu[k];
+        const float gh = (relu && !(fmaf(d, a[k], be[k]) > 0.f)) ? 0.f : g[k];
+        acc[0][k] += gh;
+        acc[1][k] = fmaf(gh, d * r[k], acc[1][k]);
+      }
+    }
+  }
+  block_channel_sums<V, 2>(acc, red, part, vpr, cb);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  // push this CTA's sums into slot `rank` of every CTA's xch (stores into the
+  // peers' shared memory: no round trip to wait for)
+  for (int i = tid; i < 2 * cb * cs; i += blockDim.x)
+    cluster.map_shared_rank(xch, i / (2 * cb))[rank * 2 * cb + i % (2 * cb)] = part[i % (2 * cb)];
+  cluster.sync();  // every rank's sums have landed in every CTA
+
+  // the image's sums per channel, the ranks added in order: every CTA of
+  // the cluster gets the same bits
+  for (int i = tid; i < 2 * cb; i += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < cs; ++k) s += xch[k * 2 * cb + i];
+    csum[i] = s;
+    if (rank == 0) sums[(size_t)b * 2 * C + (i / cb) * C + c0 + i % cb] = s;
+  }
+  __syncthreads();
+  // the group means c1 = mean(gamma * gh), c2 = mean(gamma * gh * xhat)
+  if (tid < ng) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int c = tid * gs; c < (tid + 1) * gs; ++c) {
+      t1 = fmaf(gamma[c0 + c], csum[c], t1);
+      t2 = fmaf(gamma[c0 + c], csum[cb + c], t2);
+    }
+    const float n = (float)HW * (float)gs;
+    const float rg = stats[((size_t)b * G + c0 / gs + tid) * 2 + 1];
+    coef[tid] = rg * (t1 / n);
+    coef[ng + tid] = rg * rg * (t2 / n);
+  }
+  __syncthreads();
+
+  // dx = (gamma * r) * gh - r * c1 - (x - mu) * r^2 * c2 from shared memory,
+  // 16 bytes a thread straight to device memory
+  float rc1[V], r2c2[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int g = (cv * V + k) / gs;
+    rc1[k] = coef[g];
+    r2c2[k] = coef[ng + g];
+  }
+  T* out = dx + ((size_t)b * HW + row0) * C + c0 + cv * V;
+#pragma unroll 4
+  for (int row = slot; row < nrows; row += rslots) {
+    float v[V], g[V];
+    load_vec(xs + row * cb + cv * V, v);
+    load_vec(ds + row * cb + cv * V, g);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = v[k] - mu[k];
+      const float gh = (relu && !(fmaf(d, a[k], be[k]) > 0.f)) ? 0.f : g[k];
+      v[k] = fmaf(a[k], gh, -fmaf(d, r2c2[k], rc1[k]));
+    }
+    store_vec(out + (size_t)row * C, v);
+  }
+}
+
+// dgamma and dbeta: the images' sums added in order, one thread a channel.
+__global__ void gnb_batch_sums_kernel(const float* __restrict__ sums, float* __restrict__ dgamma,
+                                      float* __restrict__ dbeta, int B, int C) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float db = 0.f, dg = 0.f;
+  for (int i = 0; i < B; ++i) {
+    db += sums[(size_t)i * 2 * C + c];
+    dg += sums[(size_t)i * 2 * C + C + c];
+  }
+  dbeta[c] = db;
+  dgamma[c] = dg;
+}
+
+// The same layout as gnb_cluster_kernel's, in bytes
+// (ops/groupnorm.py::_cluster_backward_smem computes it too).
+size_t cluster_backward_smem_bytes(int itemsize, int V, int cb, int gs, int box_rows, int nbox,
+                                   int threads, int cs) {
+  const int ng = cb / gs, vpr = cb / V;
+  const int slots = (32 % vpr) == 0 ? threads / 32 : threads / vpr;
+  const size_t slab = (size_t)nbox * box_rows * cb * itemsize;
+  return 128 + round_up(slab, 128) + round_up(slab, 16) + 8 * (size_t)nbox +
+         4 * (2 * (size_t)slots * cb + (2 * (size_t)cs + 4) * cb + 2 * ng);
+}
+
+template <typename T>
+int launch_cluster_backward(const void* x, const void* dy, const float* gamma, const float* beta,
+                            const float* stats, void* dx, float* dgamma, float* dbeta,
+                            float* sums, int B, int HW, int C, int G, int cb, int cs,
+                            int rows_per_cta, int box_rows, int nbox, int threads, int smem,
+                            int relu, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int gs = C / G;
+  if (cluster_backward_smem_bytes(sizeof(T), V, cb, gs, box_rows, nbox, threads, cs) >
+          (size_t)smem ||
+      smem > kMaxDynSmem || cs > kMaxClusterBackward)
+    return kErrSmemPlan;
+  const ClusterLaunch launch(dim3(cs * (C / cb), B, 1), cs, threads, smem, stream);
+  int e = ready_cluster(reinterpret_cast<const void*>(gnb_cluster_kernel<T>), launch, cs);
+  if (e != 0) return e;
+  CUtensorMap xmap, dymap;
+  e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows);
+  if (e != 0) return e;
+  e = encode_map(&dymap, dy, sizeof(T) == 2, B, HW, C, cb, box_rows);
+  if (e != 0) return e;
+  cudaError_t err = cudaLaunchKernelEx(&launch.cfg, gnb_cluster_kernel<T>, xmap, dymap,
+                                       static_cast<T*>(dx), gamma, beta, stats, sums, HW, C, gs,
+                                       cb, rows_per_cta, box_rows, nbox, relu);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gnb_batch_sums_kernel<<<(C + 255) / 256, 256, 0, stream>>>(sums, dgamma, dbeta, B, C);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int crossloc_gn_forward(const void* x, void* y, const float* gamma, const float* beta,
@@ -991,6 +1271,21 @@ extern "C" int crossloc_gn_backward(const void* x, const void* dy, const float* 
               : launch_backward<float>(x, dy, gamma, beta, stats, dx, dgamma, dbeta, part, sums,
                                        table, B, HW, C, G, chunk_rows, nchunks, relu, s);
   return static_cast<int>(err);
+}
+
+extern "C" int crossloc_gn_cluster_backward(const void* x, const void* dy, const float* gamma,
+                                            const float* beta, const float* stats, void* dx,
+                                            float* dgamma, float* dbeta, float* sums, int B,
+                                            int HW, int C, int G, int cb, int cluster,
+                                            int rows_per_cta, int box_rows, int nbox, int threads,
+                                            int smem, int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_cluster_backward<__nv_bfloat16>(
+                       x, dy, gamma, beta, stats, dx, dgamma, dbeta, sums, B, HW, C, G, cb,
+                       cluster, rows_per_cta, box_rows, nbox, threads, smem, relu, s)
+                 : launch_cluster_backward<float>(x, dy, gamma, beta, stats, dx, dgamma, dbeta,
+                                                  sums, B, HW, C, G, cb, cluster, rows_per_cta,
+                                                  box_rows, nbox, threads, smem, relu, s);
 }
 
 extern "C" const char* crossloc_cuda_error_string(int err) {

@@ -7,6 +7,9 @@ kernel to the plain version. `_plan` picks the kernel's design per shape:
 one cluster launch that reads x once where a slab of one image fits a thread
 block cluster's shared memory, the three-pass design (stats, finalize,
 apply) elsewhere; the note at the top of the source says why.
+`_plan_backward` does the same for the backward, whose slab is x and dy
+together: the cluster design (clusters of up to 16 CTAs), or the four-kernel
+design that reads both twice.
 
 Semantics match `crossloc_tpu/ops/pallas_groupnorm.py` (`_kernel`, and its
 reference `_gn_reference`): contiguous channel groups, fp32 statistics with
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -36,6 +40,9 @@ _VEC_BYTES = 16  # one vector load; also TMA's unit for strides and inner boxes
 # every shape of the main path (PERF.md)
 _MIN_ROW_BYTES = 64
 _CLUSTER_SIZES = (1, 2, 4, 8)  # up to the portable 8 (no opt-in); powers of two pack GPCs
+# K1-bwd, after the portable sizes: 16 CTAs, which H100 allows on request
+# (non-portable); its GPCs hold 16-18 SMs
+_CLUSTER_SIZES_NON_PORTABLE = (16,)
 _CLUSTER_THREADS = 256
 _BOX_MAX = 256  # TMA box: at most 256 elements along each dimension
 _SMEM_PER_CTA = 232448  # 227 KB, the most one block may ask for on Hopper
@@ -72,9 +79,9 @@ def _check(x, scale, bias, groups: int) -> None:
 
 
 class Plan(NamedTuple):
-    """How K1 runs one shape (see `_plan`)."""
-    design: str         # "cluster" or "three_pass"
-    cb: int             # channels per cluster (whole groups); 0 for three_pass
+    """How K1 or K1-bwd runs one shape (see `_plan`, `_plan_backward`)."""
+    design: str         # "cluster", or "three_pass" (K1) / "four_kernel" (K1-bwd)
+    cb: int             # channels per cluster (whole groups); 0 otherwise
     cluster: int        # CTAs per cluster
     rows_per_cta: int   # H*W rows each CTA holds (the last CTA may hold fewer)
     box_rows: int       # rows per TMA box
@@ -84,6 +91,7 @@ class Plan(NamedTuple):
 
 
 _THREE_PASS = Plan("three_pass", 0, 0, 0, 0, 0, 0, 0)
+_FOUR_KERNEL = Plan("four_kernel", 0, 0, 0, 0, 0, 0, 0)
 
 
 def _channel_block(C: int, G: int, itemsize: int) -> int:
@@ -97,16 +105,60 @@ def _channel_block(C: int, G: int, itemsize: int) -> int:
     return 0
 
 
+def _red_slots(cb: int, itemsize: int, threads: int) -> int:
+    """Row slots of the reduction scratch left after a warp's shuffles."""
+    vpr = cb * itemsize // _VEC_BYTES
+    return threads // 32 if 32 % vpr == 0 else threads // vpr
+
+
 def _cluster_smem(itemsize: int, cb: int, gs: int, box_rows: int, nbox: int, threads: int,
                   cluster: int) -> int:
-    """Dynamic shared memory of one CTA: alignment pad, slab, one mbarrier per
-    box, the reduction scratch (two sums per channel and row slot left after
-    a warp's shuffles), and the statistics, every rank's among them (the
-    kernel's layout)."""
-    vpr = cb * itemsize // _VEC_BYTES
-    slots = threads // 32 if 32 % vpr == 0 else threads // vpr
+    """Dynamic shared memory of one forward CTA: alignment pad, slab, one
+    mbarrier per box, the reduction scratch (two sums per channel and row
+    slot), and the statistics, every rank's among them (the kernel's layout)."""
+    slots = _red_slots(cb, itemsize, threads)
     return (128 + nbox * box_rows * cb * itemsize + 8 * nbox
             + 4 * (2 * slots * cb + (2 * cluster + 4) * (cb // gs)))
+
+
+def _cluster_backward_smem(itemsize: int, cb: int, gs: int, box_rows: int, nbox: int,
+                           threads: int, cluster: int) -> int:
+    """Dynamic shared memory of one backward CTA: alignment pad, the slabs of
+    x (padded to 128 bytes) and dy, one mbarrier per box pair, the reduction
+    scratch, this CTA's, every rank's and the image's two sums per channel,
+    and two coefficients per group (the kernel's layout)."""
+    slots = _red_slots(cb, itemsize, threads)
+    slab = nbox * box_rows * cb * itemsize
+    return (128 + -(-slab // 128) * 128 + -(-slab // 16) * 16 + 8 * nbox
+            + 4 * (2 * slots * cb + (2 * cluster + 4) * cb + 2 * (cb // gs)))
+
+
+def _cluster_plan(HW: int, C: int, G: int, itemsize: int, slabs: int, smem_fn,
+                  size_groups=(_CLUSTER_SIZES,)):
+    """The cluster plan for `slabs` tensors of [H*W, cb] held per (image,
+    channel block), or None where none fits: within each group of cluster
+    sizes in turn, the smallest cluster whose CTAs are small enough that two
+    share an SM, else the smallest whose CTAs hold at most _SLAB_PER_CTA
+    bytes of slab (one CTA per SM)."""
+    gs = C // G
+    cb = _channel_block(C, G, itemsize)
+    vpr = cb * itemsize // _VEC_BYTES
+    if cb == 0 or cb > _BOX_MAX or vpr > _CLUSTER_THREADS or C * itemsize % _VEC_BYTES:
+        return None
+    threads = vpr * (_CLUSTER_THREADS // vpr)
+    for sizes, smem_limit in itertools.product(size_groups, _CTA_SMEM_LIMITS):
+        for cs in sizes:
+            rows = -(-HW // cs)
+            nbox = -(-rows // _BOX_MAX)
+            box_rows = -(-rows // nbox)
+            if nbox > 1:  # each box starts 128-byte aligned in shared memory
+                box_rows = -(-box_rows // 8) * 8
+            rows_per_cta = nbox * box_rows
+            cluster = -(-HW // rows_per_cta)  # every CTA holds rows
+            smem = smem_fn(itemsize, cb, gs, box_rows, nbox, threads, cluster)
+            if slabs * rows_per_cta * cb * itemsize <= _SLAB_PER_CTA and smem <= smem_limit:
+                return Plan("cluster", cb, cluster, rows_per_cta, box_rows, nbox, threads, smem)
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,26 +171,20 @@ def _plan(B: int, H: int, W: int, C: int, G: int, dtype) -> Plan:
     smallest whose CTAs hold at most 200 KB of slab (one CTA per SM).
     Everything else runs "three_pass"."""
     del B  # one cluster per image and channel block, whatever the batch
-    itemsize = dtype.itemsize
-    HW, gs = H * W, C // G
-    cb = _channel_block(C, G, itemsize)
-    vpr = cb * itemsize // _VEC_BYTES
-    if cb == 0 or cb > _BOX_MAX or vpr > _CLUSTER_THREADS or C * itemsize % _VEC_BYTES:
-        return _THREE_PASS
-    threads = vpr * (_CLUSTER_THREADS // vpr)
-    for smem_limit in _CTA_SMEM_LIMITS:
-        for cs in _CLUSTER_SIZES:
-            rows = -(-HW // cs)
-            nbox = -(-rows // _BOX_MAX)
-            box_rows = -(-rows // nbox)
-            if nbox > 1:  # each box starts 128-byte aligned in shared memory
-                box_rows = -(-box_rows // 8) * 8
-            rows_per_cta = nbox * box_rows
-            cluster = -(-HW // rows_per_cta)  # every CTA holds rows
-            smem = _cluster_smem(itemsize, cb, gs, box_rows, nbox, threads, cluster)
-            if rows_per_cta * cb * itemsize <= _SLAB_PER_CTA and smem <= smem_limit:
-                return Plan("cluster", cb, cluster, rows_per_cta, box_rows, nbox, threads, smem)
-    return _THREE_PASS
+    plan = _cluster_plan(H * W, C, G, dtype.itemsize, 1, _cluster_smem)
+    return plan or _THREE_PASS
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_backward(B: int, H: int, W: int, C: int, G: int, dtype) -> Plan:
+    """Pick K1-bwd's design for one shape, as `_plan` does for K1, with the
+    slab of x and that of dy held together: "cluster" where both fit a
+    cluster of at most 8 CTAs, else of 16 (at most 200 KB of the two a
+    CTA); "four_kernel" elsewhere."""
+    del B
+    plan = _cluster_plan(H * W, C, G, dtype.itemsize, 2, _cluster_backward_smem,
+                         (_CLUSTER_SIZES, _CLUSTER_SIZES_NON_PORTABLE))
+    return plan or _FOUR_KERNEL
 
 
 def _chunking(B: int, HW: int):
@@ -161,6 +207,8 @@ def _lib():
         lib.crossloc_gn_cluster_forward.restype = i
         lib.crossloc_gn_backward.argtypes = [p] * 11 + [i] * 8 + [p]
         lib.crossloc_gn_backward.restype = i
+        lib.crossloc_gn_cluster_backward.argtypes = [p] * 9 + [i] * 13 + [p]
+        lib.crossloc_gn_cluster_backward.restype = i
         lib.crossloc_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -266,14 +314,11 @@ def group_norm_relu_backward_plain(x, scale, bias, dy, groups: int, eps: float =
         return torch.autograd.grad(y, leaves, dy)
 
 
-def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
-    """K1's backward kernel on x's stream: (dx, dscale, dbias) from x, the
-    forward's `stats` (float32 [B, groups, 2] of mu, rstd) and dy (x's
-    dtype, shape and layout). Raises on any input it does not take,
-    including a non-contiguous dy; a failed launch raises."""
+def _check_backward(x, scale, bias, stats, dy, groups: int) -> None:
+    """Raise on any CUDA input the backward kernels do not take."""
     _check(x, scale, bias, groups)
     _check_cuda(x, scale, bias)
-    B, H, W, C = x.shape
+    B = x.shape[0]
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device} does not match x "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
@@ -282,7 +327,16 @@ def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool 
     if (stats.shape != (B, groups, 2) or stats.dtype != torch.float32
             or stats.device != x.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be a contiguous float32 [{B}, {groups}, 2] on {x.device}")
+
+
+def _four_kernel_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
+    """The four-kernel backward on x's stream: per-chunk partials, per-image
+    sums, the group coefficients with dscale and dbias, dx (x and dy read
+    twice). `_plan_backward` sends slabs too large for a cluster here;
+    called directly, it takes every shape (for comparisons)."""
+    _check_backward(x, scale, bias, stats, dy, groups)
     lib = _lib()
+    B, H, W, C = x.shape
     HW = H * W
     chunk_rows, nchunks = _chunking(B, HW)
     dx = torch.empty_like(x)
@@ -298,9 +352,45 @@ def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool 
             dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), part.data_ptr(),
             sums.data_ptr(), table.data_ptr(), B, HW, C, groups, chunk_rows, nchunks,
             int(relu), int(x.dtype == torch.bfloat16), stream)
-    _raise_on(err, lib, "backward")
+    _raise_on(err, lib, "four-kernel backward")
     group_norm_relu_backward.launches += 1
     return dx, dscale, dbias
+
+
+def _cluster_backward(x, scale, bias, stats, dy, groups: int, relu: bool, plan: Plan):
+    """The cluster backward on x's stream: one cluster launch that reads x
+    and dy once, then the images' per-channel sums added in order into
+    dscale and dbias."""
+    lib = _lib()
+    B, H, W, C = x.shape
+    dx = torch.empty_like(x)
+    dscale = torch.empty(C, device=x.device, dtype=torch.float32)
+    dbias = torch.empty(C, device=x.device, dtype=torch.float32)
+    sums = torch.empty(B * 2 * C, device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_cluster_backward(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), sums.data_ptr(), B, H * W, C,
+            groups, plan.cb, plan.cluster, plan.rows_per_cta, plan.box_rows, plan.nbox,
+            plan.threads, plan.smem_bytes, int(relu), int(x.dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "cluster backward")
+    group_norm_relu_backward.launches += 1
+    return dx, dscale, dbias
+
+
+def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
+    """K1's backward on x's stream, in the design `_plan_backward` picks:
+    (dx, dscale, dbias) from x, the forward's `stats` (float32 [B, groups,
+    2] of mu, rstd) and dy (x's dtype, shape and layout). Raises on any
+    input it does not take, including a non-contiguous dy; a failed launch
+    raises, it never falls back."""
+    _check_backward(x, scale, bias, stats, dy, groups)
+    B, H, W, C = x.shape
+    plan = _plan_backward(B, H, W, C, groups, x.dtype)
+    if plan.design == "cluster":
+        return _cluster_backward(x, scale, bias, stats, dy, groups, relu, plan)
+    return _four_kernel_backward(x, scale, bias, stats, dy, groups, relu)
 
 
 group_norm_relu_backward.launches = 0  # backward kernel launches (CUDA calls only)

@@ -2,7 +2,10 @@
 
 Both designs are held: the one `_plan` picks (the cluster kernel wherever a
 slab fits a cluster) and the three-pass design, reached through `_three_pass`.
-K1's backward kernel is held against the autograd of the plain twin.
+K1's backward is held against the autograd of the plain twin in both its
+designs: the one `_plan_backward` picks (the cluster kernel wherever the
+slabs of x and dy fit a cluster) and the four-kernel design, reached through
+`_four_kernel_backward`.
 
 Needs a CUDA card: every test skips without one. It imports no JAX, so it
 runs on a machine that has only PyTorch:
@@ -19,7 +22,14 @@ from crossloc_tpu_torch.ops import (
     group_norm_relu_backward_plain,
     group_norm_relu_plain,
 )
-from crossloc_tpu_torch.ops.groupnorm import _cluster, _plan, _three_pass
+from crossloc_tpu_torch.ops.groupnorm import (
+    _cluster,
+    _four_kernel_backward,
+    _launch,
+    _plan,
+    _plan_backward,
+    _three_pass,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -196,17 +206,121 @@ def test_backward_matches_plain(card, shape, dtype, relu):
     _check_backward(x, s, b, G, relu, _off_kink_dy(x, s, b, G, seed=8))
 
 
-def test_backward_is_deterministic(card):
+def _backward_of(design, x, s, b, G, relu, dy):
+    """(dx, dscale, dbias) of one design from the statistics the forward
+    writes: "planned" through autograd, "four_kernel" reached directly."""
+    if design == "planned":
+        return _check_backward(x, s, b, G, relu, dy)
+    stats = torch.empty(x.shape[0], G, 2, device=x.device)
+    _launch(x, s, b, G, 1e-5, relu, stats)
+    n0 = group_norm_relu_backward.launches
+    got = _four_kernel_backward(x, s, b, stats, dy, G, relu)
+    torch.cuda.synchronize()
+    assert group_norm_relu_backward.launches == n0 + 1
+    ref = group_norm_relu_backward_plain(x, s, b, dy, G, 1e-5, relu)
+    rel = 1e-4 + (2.0**-7 if x.dtype == torch.bfloat16 else 0.0)
+    for a, r in zip(got, ref):
+        a, r = a.float(), r.float()
+        limit = 1e-4 * r.abs().max() + (rel * r.abs() if r.dim() == 4 else 0.0)
+        assert bool(((a - r).abs() <= limit).all()), float(((a - r).abs() - limit).max())
+    return got
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_four_kernel_backward_matches_plain(card, shape, dtype, relu):
+    B, H, W, C, G = shape
+    x, s, b = _inputs((B, H, W), C, getattr(torch, dtype), card, seed=7)
+    _backward_of("four_kernel", x, s, b, G, relu, _off_kink_dy(x, s, b, G, seed=8))
+
+
+# (C, H, W) of every norm layer on the main paths at 480x720 (the 28 of the
+# coord net, the MLR merge norm over 3 and 4 towers), at B=2
+PATH_SHAPES = [(32, 480, 720), (64, 240, 360), (128, 120, 180), (256, 60, 90), (512, 60, 90),
+               (1536, 60, 90), (2048, 60, 90)]
+
+
+@pytest.mark.parametrize("design", ["planned", "four_kernel"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PATH_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_backward_matches_plain_at_path_shapes(card, shape, dtype, relu, design):
+    C, H, W = shape
+    G = min(32, C)
+    x, s, b = _inputs((2, H, W), C, getattr(torch, dtype), card, seed=C)
+    if design == "planned" and C in (256, 512):  # the 25 layers at 60x90 of a train step
+        assert _plan_backward(2, H, W, C, G, x.dtype).design == "cluster"
+    _backward_of(design, x, s, b, G, relu, _off_kink_dy(x, s, b, G, seed=C + 1))
+
+
+@pytest.mark.parametrize("design", ["planned", "four_kernel"])
+def test_backward_is_deterministic(card, design):
     x, s, b = _inputs((4, 60, 90), 256, torch.float32, card, seed=9)
+    assert _plan_backward(4, 60, 90, 256, 32, x.dtype).design == "cluster"
     dy = _off_kink_dy(x, s, b, 32, seed=10)
-    first = _check_backward(x, s, b, 32, True, dy)
-    second = _check_backward(x, s, b, 32, True, dy)
+    first = _backward_of(design, x, s, b, 32, True, dy)
+    second = _backward_of(design, x, s, b, 32, True, dy)
     for a, r in zip(first, second):
         assert torch.equal(a, r)
 
 
+def _backward_fit_limit(C, G, dtype):
+    """Largest H*W (as H x 1) that the backward planner still sends to the
+    cluster."""
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        fits = _plan_backward(1, mid, 1, C, G, dtype).design == "cluster"
+        lo, hi = (mid, hi) if fits else (lo, mid)
+    return lo
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [512, 2048])
+def test_backward_slab_at_and_over_the_fit_limit(card, C, dtype):
+    """Slabs of x and dy that fill a cluster of 16 CTAs to the limit run the
+    cluster backward; one row more goes to the four-kernel design; both agree
+    with the plain twin."""
+    dt = getattr(torch, dtype)
+    limit = _backward_fit_limit(C, 32, dt)
+    for rows, design in ((limit, "cluster"), (limit + 1, "four_kernel")):
+        assert _plan_backward(1, rows, 1, C, 32, dt).design == design
+        x, s, b = _inputs((1, rows, 1), C, dt, card, seed=rows)
+        _check_backward(x, s, b, 32, True, _off_kink_dy(x, s, b, 32, seed=rows + 1))
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("design", ["planned", "four_kernel"])
+def test_backward_large_mean_keeps_f32_accuracy(card, design, relu):
+    """|mu| / std = 1000 in the cluster design (and the four-kernel one):
+    against the float64 autograd, each gradient within the f32 tolerance
+    plus the plain twin's own largest distance from float64."""
+    B, H, W, C, G = 2, 60, 90, 512, 32
+    assert _plan_backward(B, H, W, C, G, torch.float32).design == "cluster"
+    g = torch.Generator(device="cpu").manual_seed(15)
+    x = (torch.randn(B, H, W, C, generator=g) + 1000.0).to(card)
+    s = torch.randn(C, generator=g).to(card)
+    b = torch.randn(C, generator=g).to(card)
+    dy = _off_kink_dy(x, s, b, G, seed=16)
+    leaves = [t.double().requires_grad_() for t in (x, s, b)]
+    exact = torch.autograd.grad(_gn_float64(leaves[0], leaves[1], leaves[2], G, relu), leaves,
+                                dy.double())
+    plain = group_norm_relu_backward_plain(x, s, b, dy, G, 1e-5, relu)
+    stats = torch.empty(B, G, 2, device=card)
+    _launch(x, s, b, G, 1e-5, relu, stats)
+    fn = group_norm_relu_backward if design == "planned" else _four_kernel_backward
+    got = fn(x, s, b, stats, dy, G, relu)
+    for a, p, e in zip(got, plain, exact):
+        limit = (1e-4 * e.abs().max() + (1e-4 * e.abs() if e.dim() == 4 else 0.0)
+                 + (p.double() - e).abs().max())
+        err = (a.double() - e).abs()
+        assert bool((err <= limit).all()), float((err - limit).max())
+
+
 def test_backward_takes_a_non_contiguous_dy_through_autograd(card):
     x, s, b = _inputs((2, 12, 16), 64, torch.float32, card, seed=11)
+    assert _plan_backward(2, 12, 16, 64, 32, x.dtype).design == "cluster"
     dy_t = _off_kink_dy(x, s, b, 32, seed=12).transpose(1, 2).contiguous()
     leaves = [t.clone().requires_grad_() for t in (x, s, b)]
     y = group_norm_relu(*leaves, 32)
