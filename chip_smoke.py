@@ -4,14 +4,16 @@
     python3 chip_smoke.py --phases card,kernels
 
 Phases:
-  card     print the card, turn TF32 off, build every CUDA source (nvcc, in
-           parallel) and print the build time;
+  card     print the card, turn TF32 off for the phases that call no CLI,
+           build every CUDA source (nvcc, in parallel) and print the build
+           time;
   kernels  hold each kernel against its plain PyTorch version at every shape
            of the main paths (f32 and bf16, ReLU on and off; K1 in the design
            its planner picks and in the three-pass design, and once with
-           |mean|/std = 1000; the MLR merge norm at C=1536 and 2048; K1's
+           |mean|/std = 1000; the MLR merge norm at C=1536 and 2048; the DUC
+           conv's norm at C=64-384, 60x90, B=12 and B=8; K1's
            backward at the training batch and at the finetune batch, with
-           C=1536 and 2048, in the design its planner picks and in the
+           C=1536 and 2048 and the DUC widths, in the design its planner picks and in the
            four-kernel design, and once with |mean|/std = 1000) and time
            them: device time from CUDA graphs with the L2 evicted between
            calls, and host-inclusive call time, the two designs of K1 and
@@ -40,9 +42,16 @@ Phases:
            by `test_single_task` on cuda (num_mlr from the folder name), a
            --bf16 run, one step's trainable gradients on the card against the
            CPU, and the finetune-step time at B=8;
+  tasks    the port's `train_single_task` on cuda with encoder_pretrain.sh's
+           settings for depth and normal (MLE, --hardclamp 10) and semantics
+           (--fullsize, the DUC head): 28 + 28 and 29 + 29 launches per step,
+           each model.net served on val_sim by `test_single_task` (its report
+           lines finite), card gradients against the CPU for normal and
+           semantics, the step times at B=12, a --bf16 semantics run, and TF32
+           left off by the CLIs' own setup (ROADMAP F1);
   profile  (extra, not in the default run) kernel-time breakdown of one
-           image -> pose batch, one training step and one finetune step with
-           torch.profiler.
+           image -> pose batch, one coord and one semantics training step and
+           one finetune step with torch.profiler.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
 `{"ok": true, "device": {...}}`. Exits non-zero if any phase fails, if no
@@ -84,6 +93,18 @@ FINETUNE_ARGS = ["urbanscape", "--task", "coord", "--inittolerance", "50.0", "--
                  "--encoders", "coord", "depth", "normal", "--reuse_coord_encoder",
                  "--unfreeze_coord_encoder", "--no_lr_scheduling", "--device", "cuda"]
 FT_TASKS = ("coord", "depth", "normal")
+# the per-task flags of script_clean_training/_lib.sh::task_flags, with
+# encoder_pretrain.sh's uncertainty (semantics: none)
+TASK_FLAGS = {"depth": ["--hardclamp", "10", "--uncertainty", "MLE"],
+              "normal": ["--hardclamp", "10", "--uncertainty", "MLE"],
+              "semantics": ["--fullsize", "--uncertainty", "none"]}
+# (task, scene, extra flags) of the tasks phase's runs
+TASK_RUNS = [("depth", "plane", []), ("normal", "noise", []), ("semantics", "plane", [])]
+# the first words of each report's lines (eval/reports.py)
+TASK_REPORT_LINES = {
+    "depth": ("absolute relative error, mean:", "RMS error, mean:"),
+    "normal": ("angular prediction error, mean:",),
+    "semantics": ("Pixel accuracy, mean:", "Mean IoU, mean:", "Frequency weighted IoU, mean:")}
 FT_FWD, FT_BWD = 67, 33  # K1 per forward (3 x 17 + 5 + 11), K1-bwd per step (17 + 5 + 11)
 
 # (C, H, W, relu, layers per forward) of the 28 Conv->GN layers at 480x720
@@ -98,6 +119,10 @@ GN_PATH_SHAPES = [
 # the MLR merge norm over 3 towers (this path) and 4 (with semantics); in no
 # 28-layer total
 MLR_SHAPES = [(1536, 60, 90, False, 0), (2048, 60, 90, False, 0)]
+# the DUC conv's norm at 480x720: C = 64 x the output channels (depth 1 + 1,
+# normal 2 + 1, coord 3 + 1 with --fullsize; semantics 6 on its main path);
+# held at the semantics training batch and the eval batch, in no 28-call total
+DUC_SHAPES = [(C, 60, 90, True, 0) for C in (64, 128, 192, 256, 384)]
 # (C, H, W, relu, K1 calls per forward, K1-bwd calls per step) of the
 # finetune path: three towers forward, the first backward too, the five MLR
 # norms and the decoder's eleven
@@ -185,6 +210,12 @@ def _path_totals(rows, col: int, keys) -> dict:
     return out
 
 
+def _duc_row(rows, B, dtype) -> dict:
+    """The row of the semantics DUC conv's norm (C=384) at batch B."""
+    (row,) = [r for r in rows if r["C"] == 384 and r["B"] == B and r["dtype"] == dtype]
+    return row
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -228,24 +259,74 @@ class Smoke:
     # -- phase 2 -----------------------------------------------------------
     def phase_kernels(self):
         import torch
+
+        flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        flush = flush_buf.zero_
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows, worst = self._forward_rows(flush, gen, BATCH, GN_PATH_SHAPES + MLR_SHAPES)
+        duc_rows = []
+        for B in (TRAIN_BATCH, BATCH):
+            r, w = self._forward_rows(flush, gen, B, DUC_SHAPES)
+            duc_rows += r
+            worst = max(worst, w)
+        self._large_mean_check()
+        keys = ("ms", "three_pass_ms", "plain_ms", "library_ms", "bound_ms")
+        tot = {d: {k: sum(r["per_forward"] * r[k] for r in rows if r["dtype"] == d) for k in keys}
+               for d in ("float32", "bfloat16")}
+        ft = _path_totals(rows, 4, keys)
+        # the semantics net: the coord net's 28 layers and the DUC conv's (C=384)
+        sem = {d: {k: tot[d][k] + _duc_row(duc_rows, BATCH, d)[k] for k in keys} for d in tot}
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "k1_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
+                           rows=rows, duc_rows=duc_rows, per_forward=tot, per_finetune_forward=ft,
+                           per_semantics_forward=sem), f, indent=1)
+        for dname, t in tot.items():
+            log(f"K1 over one {dname} forward's 28 calls (B={BATCH}, 480x720), device time: "
+                f"planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
+        for dname, t in ft.items():
+            log(f"K1 over one {dname} finetune forward's {FT_FWD} calls (B={FT_BATCH}, 480x720, "
+                f"3 towers + MLR + decoder), device time: planned {t['ms']:.4f} ms, three-pass "
+                f"{t['three_pass_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        for dname, t in sem.items():
+            log(f"K1 over one {dname} semantics forward's 29 calls (B={BATCH}, 480x720, the DUC "
+                f"conv's at C=384), device time: planned {t['ms']:.4f} ms, three-pass "
+                f"{t['three_pass_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        f32 = tot["float32"]
+        self.kernels["groupnorm"] = dict(
+            name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
+            replaces="crossloc_tpu/ops/pallas_groupnorm.py:57",
+            max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
+            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
+            three_pass_ms=f32["three_pass_ms"])
+        self._backward_kernel(flush)
+
+    def _forward_rows(self, flush, gen, B, shapes):
+        """K1 at each (C, H, W, relu, layers per forward) of `shapes`, batch B,
+        f32 and bf16, ReLU on and off, in the design `_plan` picks and in the
+        three-pass design, each against the plain twin, and timed at the
+        path's ReLU: device time (CUDA graphs, L2 evicted) and call time of
+        the two designs in turns (three-pass, planned, planned, three-pass),
+        the plain twin, one library call (`F.group_norm` + ReLU) and the
+        bytes bound. Returns (rows, worst f32 |y - plain| of the planned
+        design)."""
+        import torch
         import torch.nn.functional as F
 
         from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
         from crossloc_tpu_torch.ops.groupnorm import _plan, _three_pass
 
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
-        flush = flush_buf.zero_
-        worst = 0.0
-        tot = {dt: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, three_pass_ms=0.0)
-               for dt in ("float32", "bfloat16")}
-        rows = []
-        for C, H, W, relu_path, count in GN_PATH_SHAPES + MLR_SHAPES:
+        rows, worst = [], 0.0
+        for C, H, W, relu_path, count in shapes:
             G = min(32, C)
             for dtype in (torch.float32, torch.bfloat16):
                 dname = str(dtype)[6:]
-                plan = _plan(BATCH, H, W, C, G, dtype)
-                x = (torch.randn(BATCH, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
+                plan = _plan(B, H, W, C, G, dtype)
+                x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
                 scale = torch.randn(C, device="cuda", generator=gen)
                 bias = torch.randn(C, device="cuda", generator=gen)
                 for relu in (True, False):
@@ -262,11 +343,11 @@ class Smoke:
                         if design == "planned" and dtype == torch.float32:
                             worst = max(worst, mx)
                         name = plan.design if design == "planned" else "three_pass"
-                        log(f"  K1 {name} C={C} {H}x{W} {dname} relu={relu}: max_abs_err={mx:.3e} "
-                            f"(limit {atol:g} + {rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
+                        log(f"  K1 {name} C={C} {H}x{W} B={B} {dname} relu={relu}: max_abs_err="
+                            f"{mx:.3e} (limit {atol:g} + {rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
                         if not ok:
                             raise AssertionError(f"K1 {name} disagrees with plain at C={C} {H}x{W} "
-                                                 f"{dtype} relu={relu}")
+                                                 f"B={B} {dtype} relu={relu}")
                     del y, ref
                 relu = relu_path
                 planned = lambda: group_norm_relu(x, scale, bias, G, 1e-5, relu)
@@ -286,53 +367,24 @@ class Smoke:
                     flush, n=5)
                 nbytes = 2 * x.numel() * x.element_size() + 2 * C * 4
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 8 * x.numel() / FP32_FLOPS)
-                row = dict(C=C, H=H, W=W, dtype=dname, relu=relu, design=plan.design,
-                           cluster=plan.cluster, cb=plan.cb, ms=(dev[1] + dev[2]) / 2,
-                           call_ms=(call[1] + call[2]) / 2,
+                row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, design=plan.design,
+                           cluster=plan.cluster, cb=plan.cb, threads=plan.threads,
+                           ms=(dev[1] + dev[2]) / 2, call_ms=(call[1] + call[2]) / 2,
                            three_pass_ms=(dev[0] + dev[3]) / 2,
                            three_pass_call_ms=(call[0] + call[3]) / 2, turns_ms=dev,
                            turns_call_ms=call, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                            per_forward=count)
                 rows.append(row)
-                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.smem_bytes} B smem"
-                         if plan.design == "cluster" else "three_pass")
-                log(f"  K1 time C={C} {H}x{W} {dname} relu={relu} [{where}]: device "
+                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.threads} threads, "
+                         f"{plan.smem_bytes} B smem" if plan.design == "cluster" else "three_pass")
+                log(f"  K1 time C={C} {H}x{W} B={B} {dname} relu={relu} [{where}]: device "
                     f"{row['ms']:.4f} ms (three-pass {row['three_pass_ms']:.4f}; turns "
                     + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
                     f"(three-pass {row['three_pass_call_ms']:.4f}), plain {p_ms:.4f} ms, "
                     f"F.group_norm(+relu) {l_ms:.4f} ms, bytes bound {bound:.4f} ms "
                     f"(bound / device = {bound / row['ms']:.1%})")
-                t = tot[dname]
-                t["ms"] += count * row["ms"]
-                t["three_pass_ms"] += count * row["three_pass_ms"]
-                t["plain_ms"] += count * p_ms
-                t["library_ms"] += count * l_ms
-                t["bound_ms"] += count * bound
                 del x
-        self._large_mean_check()
-        ft = _path_totals(rows, 4, ("ms", "three_pass_ms", "plain_ms", "library_ms", "bound_ms"))
-        os.makedirs(self.out_dir, exist_ok=True)
-        with open(os.path.join(self.out_dir, "k1_shapes.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
-                           rows=rows, per_forward=tot, per_finetune_forward=ft), f, indent=1)
-        for dname, t in tot.items():
-            log(f"K1 over one {dname} forward's 28 calls (B={BATCH}, 480x720), device time: "
-                f"planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, plain "
-                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
-                f"{t['bound_ms']:.4f} ms")
-        for dname, t in ft.items():
-            log(f"K1 over one {dname} finetune forward's {FT_FWD} calls (B={FT_BATCH}, 480x720, "
-                f"3 towers + MLR + decoder), device time: planned {t['ms']:.4f} ms, three-pass "
-                f"{t['three_pass_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
-                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
-        f32 = tot["float32"]
-        self.kernels["groupnorm"] = dict(
-            name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
-            replaces="crossloc_tpu/ops/pallas_groupnorm.py:57",
-            max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
-            library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
-            three_pass_ms=f32["three_pass_ms"])
-        self._backward_kernel(flush)
+        return rows, worst
 
     def _backward_kernel(self, flush):
         """K1's backward at the coord net's shapes at B=TRAIN_BATCH (the
@@ -343,15 +395,23 @@ class Smoke:
         rows, worst = self._backward_rows(flush, TRAIN_BATCH, shapes, seed=1)
         ft_shapes = [s[:4] for s in FT_PATH_SHAPES] + [s[:4] for s in MLR_SHAPES[1:]]
         ft_rows, ft_worst = self._backward_rows(flush, FT_BATCH, ft_shapes, seed=2)
+        duc_rows = []
+        for seed, B in enumerate((TRAIN_BATCH, FT_BATCH), start=3):
+            r, w = self._backward_rows(flush, B, [s[:4] for s in DUC_SHAPES], seed=seed)
+            duc_rows += r
+            worst = max(worst, w)
         self._large_mean_backward_check()
         keys = ("ms", "four_kernel_ms", "plain_ms", "library_ms", "bound_ms")
         tot = {d: {k: sum(c * r[k] for r in rows for (C, H, W, relu, c) in GN_PATH_SHAPES
                           if r["dtype"] == d and (r["C"], r["relu"]) == (C, relu)) for k in keys}
                for d in ("float32", "bfloat16")}
         ft = _path_totals(ft_rows, 5, keys)
+        sem = {d: {k: tot[d][k] + _duc_row(duc_rows, TRAIN_BATCH, d)[k] for k in keys}
+               for d in tot}
         with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
             json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
-                           rows=rows + ft_rows, per_step=tot, per_finetune_step=ft), f, indent=1)
+                           rows=rows + ft_rows, duc_rows=duc_rows, per_step=tot,
+                           per_finetune_step=ft, per_semantics_step=sem), f, indent=1)
         for dname, t in tot.items():
             log(f"K1-bwd over one {dname} training step's 28 calls (B={TRAIN_BATCH}, 480x720), "
                 f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
@@ -362,6 +422,11 @@ class Smoke:
                 f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
                 f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms")
+        for dname, t in sem.items():
+            log(f"K1-bwd over one {dname} semantics step's 29 calls (B={TRAIN_BATCH}, 480x720, "
+                f"the DUC conv's at C=384), device time: planned {t['ms']:.4f} ms, four-kernel "
+                f"{t['four_kernel_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
         self.kernels["groupnorm_backward"] = dict(
             name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
@@ -467,8 +532,8 @@ class Smoke:
                            four_kernel_call_ms=(call[0] + call[3]) / 2, turns_call_ms=call,
                            plain_ms=plain, library_ms=lib, bound_ms=bound)
                 rows.append(row)
-                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.smem_bytes} B smem"
-                         if plan.design == "cluster" else "four_kernel")
+                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.threads} threads, "
+                         f"{plan.smem_bytes} B smem" if plan.design == "cluster" else "four_kernel")
                 log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu} [{where}]: device "
                     f"{row['ms']:.4f} ms (four-kernel {row['four_kernel_ms']:.4f}; turns "
                     + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
@@ -739,15 +804,12 @@ class Smoke:
         import re
 
         import numpy as np
-        import torch
 
-        from crossloc_tpu_torch import data, ops
+        from crossloc_tpu_torch import data
         from crossloc_tpu_torch.cli import test_single_task as test_cli
         from crossloc_tpu_torch.cli import train_single_task as train_cli
         from crossloc_tpu_torch.utils import read_training_log
 
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         n_frames = 2 * TRAIN_BATCH
         work = WORK_DIR + "_train"
         shutil.rmtree(work, ignore_errors=True)
@@ -761,25 +823,9 @@ class Smoke:
             f"at {IMG_H}x{IMG_W} in {time.perf_counter() - t0:.1f} s")
 
         def train(session, extra):
-            """The training CLI in process on cuda; (output dir, losses, K1 and
-            K1-bwd launches, wall s)."""
-            args = PRETRAIN_ARGS + ["--datasets_dir", datasets, "--ckpt_dir",
-                                    os.path.join(work, "ckpts"), "--session", session, *extra]
-            cwd = os.getcwd()
-            os.chdir(work)
-            ops.group_norm_relu.launches = 0
-            ops.group_norm_relu_backward.launches = 0
-            t = time.perf_counter()
-            try:
-                out_dir = train_cli.main(args)
-                torch.cuda.synchronize()
-            finally:
-                os.chdir(cwd)
-            wall = time.perf_counter() - t
-            fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
-            text = open(os.path.join(out_dir, "output.log")).read()
-            losses = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", text)]
-            return out_dir, losses, fwd, bwd, wall
+            return self._run_cli(train_cli.main, work, PRETRAIN_ARGS + [
+                "--datasets_dir", datasets, "--ckpt_dir", os.path.join(work, "ckpts"),
+                "--session", session, *extra])
 
         # the main path: encoder pretraining, 2 epochs of 2 steps
         out_dir, losses, fwd, bwd, wall = train("smoke", ["--epochs", "2"])
@@ -840,8 +886,6 @@ class Smoke:
         from crossloc_tpu_torch.cli import test_single_task as test_cli
         from crossloc_tpu_torch.utils import read_training_log
 
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         n_frames = FT_BATCH  # per pairwise root: 2 * FT_BATCH frames, 2 steps an epoch
         work = WORK_DIR + "_finetune"
         shutil.rmtree(work, ignore_errors=True)
@@ -864,28 +908,11 @@ class Smoke:
             f"in {time.perf_counter() - t0:.1f} s")
 
         def finetune(session, extra):
-            """The finetune CLI in process on cuda; (output dir, losses, K1 and
-            K1-bwd launches, wall s)."""
-            args = FINETUNE_ARGS + [
+            return self._run_cli(ft_cli.main, work, FINETUNE_ARGS + [
                 "--coord_weight", donors["coord"], "--depth_weight", donors["depth"],
                 "--normal_weight", donors["normal"], "--datasets_dir", datasets, "--image_height",
                 str(IMG_H), "--ckpt_dir", os.path.join(work, "ckpts"), "--session", session,
-                *extra]
-            cwd = os.getcwd()
-            os.chdir(work)
-            ops.group_norm_relu.launches = 0
-            ops.group_norm_relu_backward.launches = 0
-            t = time.perf_counter()
-            try:
-                out_dir = ft_cli.main(args)
-                torch.cuda.synchronize()
-            finally:
-                os.chdir(cwd)
-            wall = time.perf_counter() - t
-            fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
-            text = open(os.path.join(out_dir, "output.log")).read()
-            losses = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", text)]
-            return out_dir, losses, fwd, bwd, wall
+                *extra])
 
         # the main path: decoder finetuning, 2 epochs of 2 steps
         out_dir, losses, fwd, bwd, wall = finetune("smoke", ["--epochs", "2"])
@@ -968,7 +995,176 @@ class Smoke:
         self._step_time(datasets, make, FT_BATCH, "train_drone_real", "finetune.json")
         shutil.rmtree(work, ignore_errors=True)
 
-    def _train_batch(self, datasets, n, device, augment=True, seed=0, section="train_sim"):
+    # -- phase 7 -----------------------------------------------------------
+    def phase_tasks(self):
+        """Encoder pretraining and serving of the depth, normal and semantics
+        nets through the CLIs, as `encoder_pretrain.sh` and
+        `validate_encoder_pretrain.sh` run them."""
+        import torch
+
+        from crossloc_tpu_torch import data
+
+        work = WORK_DIR + "_tasks"
+        shutil.rmtree(work, ignore_errors=True)
+        n_frames = 2 * TRAIN_BATCH
+        t0 = time.perf_counter()
+        # the plane scene's normals, (0, 0, -1), equal the nodata marker in
+        # every cell: the normal task trains on the noise scene
+        for scene in ("plane", "noise"):
+            for seed, (section, n) in enumerate((("train_sim", n_frames), ("val_sim", BATCH))):
+                data.write_fake_dataset(os.path.join(work, scene, "urbanscape", section), n=n,
+                                        img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=seed,
+                                        scene=scene)
+        log(f"wrote {n_frames}-frame train_sim and {BATCH}-frame val_sim sections of the plane "
+            f"and the noise scene at {IMG_H}x{IMG_W} in {time.perf_counter() - t0:.1f} s")
+
+        # ROADMAP F1: the CLI's own setup turns TF32 off (torch's default is
+        # on); `_run_cli` checks both flags after each run
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        report = {}
+        for task, scene, extra in TASK_RUNS:
+            datasets = os.path.join(work, scene)
+            report[task] = self._task_run(task, datasets, work, extra)
+            if task == TASK_RUNS[0][0]:
+                log(f"TF32 set on before the {task} run; after it: cudnn.allow_tf32="
+                    f"{torch.backends.cudnn.allow_tf32}, cuda.matmul.allow_tf32="
+                    f"{torch.backends.cuda.matmul.allow_tf32}")
+            unc = None if task == "semantics" else "MLE"
+            if task in ("normal", "semantics"):
+                # as for the finetune net, the card's f32 (with or without the
+                # kernels) may sit further from float64 than the CPU's: the
+                # card's plain twin sets the rounding the kernels may add to
+                self._gradients_against_cpu(
+                    datasets, lambda dev, dtype=None: self._model(dev, dtype, task, unc),
+                    yardstick=("cpu", "card_plain"), task=task, unc=unc)
+            report[task]["step"] = self._step_time(
+                datasets, lambda dev, dtype=None: self._model(dev, dtype, task, unc),
+                out_name=f"tasks_{task}.json", task=task, unc=unc)
+
+        # semantics once more with --bf16
+        datasets = os.path.join(work, "plane")
+        out_dir, losses, fwd, bwd, wall = self._task_train(
+            "semantics", datasets, work, "smoke_bf16", ["--epochs", "1", "--bf16"])
+        log(f"train_single_task --task semantics --bf16 on cuda: {wall:.1f} s, losses {losses}, "
+            f"{fwd} K1 and {bwd} K1-bwd launches")
+        if fwd != 29 * 2 or bwd != 29 * 2 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError("the --bf16 semantics run is off")
+        report["semantics_bf16"] = dict(losses=losses, k1=fwd, k1_bwd=bwd, wall_s=wall)
+        with open(os.path.join(self.out_dir, "tasks.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), runs=report), f,
+                      indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _run_cli(self, main, work, args):
+        """A training CLI's `main(args)` in process, in `work`, with the launch
+        counts set to 0 just before it; (output dir, logged losses, K1 and
+        K1-bwd launches, wall s). Every CLI turns TF32 off itself (ROADMAP
+        F1): checked after each run."""
+        import re
+
+        import torch
+
+        from crossloc_tpu_torch import ops
+
+        cwd = os.getcwd()
+        os.chdir(work)
+        ops.group_norm_relu.launches = 0
+        ops.group_norm_relu_backward.launches = 0
+        t = time.perf_counter()
+        try:
+            out_dir = main(args)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        wall = time.perf_counter() - t
+        fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        if any(tf32):
+            raise AssertionError(f"the CLI left TF32 on: cudnn {tf32[0]}, matmul {tf32[1]}")
+        text = open(os.path.join(out_dir, "output.log")).read()
+        losses = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", text)]
+        return out_dir, losses, fwd, bwd, wall
+
+    def _task_train(self, task, datasets, work, session, extra):
+        """The training CLI on cuda with `encoder_pretrain.sh`'s flags for
+        `task` (`_run_cli`)."""
+        from crossloc_tpu_torch.cli import train_single_task as train_cli
+
+        return self._run_cli(train_cli.main, work, [
+            "urbanscape", "--task", task, *TASK_FLAGS[task], "--learningrate", "2e-4",
+            "--batch_size", str(TRAIN_BATCH), "--auto_resume", "--sim_data_chunk", "1.0",
+            "--real_data_chunk", "0.0", "--datasets_dir", datasets, "--image_height", str(IMG_H),
+            "--ckpt_dir", os.path.join(work, "ckpts"), "--session", session, "--device", "cuda",
+            *extra])
+
+    def _task_run(self, task, datasets, work, extra):
+        """Train `task` 2 epochs through the CLI (its K1 / K1-bwd launches
+        per step counted), then serve its model.net on val_sim through the
+        eval CLI (launches counted) and check the results file."""
+        import re
+
+        import torch
+
+        from crossloc_tpu_torch import ops
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+
+        per_step = 29 if task == "semantics" else 28
+        out_dir, losses, fwd, bwd, wall = self._task_train(task, datasets, work, "smoke",
+                                                           ["--epochs", "2", *extra])
+        steps = 4  # 2 epochs of 24 frames at B=12
+        log(f"train_single_task --task {task} on cuda (B={TRAIN_BATCH}, {IMG_H}x{IMG_W}, f32, "
+            f"2 epochs): {wall:.1f} s wall for {steps} steps, losses {losses}, {fwd} K1 and {bwd} "
+            f"K1-bwd launches ({fwd / steps:g} and {bwd / steps:g} per step)")
+        self.launches[f"tasks_{task}"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        if fwd != per_step * steps or bwd != per_step * steps:
+            raise AssertionError(f"expected {per_step} K1 and K1-bwd launches per step, got "
+                                 f"{fwd}/{bwd} over {steps} steps")
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        for f in ("model.net", "FLAG_training_done.nodata"):
+            if not os.path.exists(os.path.join(out_dir, f)):
+                raise AssertionError(f"{f} not written")
+
+        ops.group_norm_relu.launches = 0
+        unc = "none" if task == "semantics" else "MLE"
+        logs = test_cli.main(["urbanscape", "--task", task, "--uncertainty", unc,
+                              *(["--fullsize"] if task == "semantics" else []), "--network_in",
+                              os.path.join(out_dir, "model.net"), "--section", "val_sim",
+                              "--datasets_dir", datasets, "--image_height", str(IMG_H),
+                              "--device", "cuda"])
+        torch.cuda.synchronize()
+        served = ops.group_norm_relu.launches
+        self.launches[f"tasks_serve_{task}"] = dict(groupnorm=served)
+        text = open(logs[0]).read()
+        heads = TASK_REPORT_LINES[task]
+        nums = [float(v) for h in heads
+                for v in re.findall(re.escape(h) + r"[^\n]*?(-?\d+\.\d+)", text)]
+        log(f"served the {task} model.net on cuda: {logs[0]}, {served} K1 launches; "
+            + "; ".join(line for line in text.splitlines() if line.startswith(heads)))
+        if served != per_step or len(nums) != len(heads) or not all(map(math.isfinite, nums)):
+            raise AssertionError(f"the {task} net did not serve: {served} K1 launches, {nums}")
+        return dict(losses=losses, k1=fwd, k1_bwd=bwd, wall_s=wall, served_k1=served,
+                    results=[ln for ln in text.splitlines() if ln.startswith(heads)])
+
+    def _host_batch(self, datasets, n, section="train_sim", task="coord"):
+        """(raw images, labels, poses, focal) of the first n frames of
+        `section` as CPU tensors; semantics labels as the training CLI sends
+        them (uint8 class ids, [n, H, W, 1])."""
+        import torch
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.cli.train_single_task import labels_to_wire
+
+        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", section), coord=task == "coord",
+                               depth=task == "depth", normal=task == "normal",
+                               semantics=task == "semantics", image_height=IMG_H).collate(range(n))
+        labels = dict(b, **labels_to_wire(b, task))[task]
+        return (torch.from_numpy(b["image"]), torch.from_numpy(labels),
+                torch.from_numpy(b["pose"]), torch.tensor(float(b["focal"][0])))
+
+    def _train_batch(self, datasets, n, device, augment=True, seed=0, section="train_sim",
+                     task="coord"):
         """(normalised images, poses, labels, focal, pp_shift) of the first n
         frames of `section`, augmented on the CPU with fixed draws, on `device`."""
         import torch
@@ -976,27 +1172,24 @@ class Smoke:
         from crossloc_tpu_torch import data
         from crossloc_tpu_torch.train import TrainBatch
 
-        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", section),
-                               image_height=IMG_H).collate(range(n))
-        images = torch.from_numpy(b["image"])
-        labels, poses = torch.from_numpy(b["coord"]), torch.from_numpy(b["pose"])
-        focal = torch.tensor(float(b["focal"][0]))
+        images, labels, poses, focal = self._host_batch(datasets, n, section, task)
         if augment:
             draws = data.draw_augmentation(torch.Generator().manual_seed(seed), n)
-            images, labels, poses, focal, pp = data.augment_batch(images, labels, poses, focal,
-                                                                  draws)
+            images, labels, poses, focal, pp = data.augment_batch(
+                images, labels, poses, focal, draws, semantics=task == "semantics")
         else:
             images, pp = data.normalize_images(images), None
         return TrainBatch(*(None if t is None else t.to(device)
                             for t in (images, poses, labels, focal, pp)))
 
-    def _model(self, device, dtype=None):
+    def _model(self, device, dtype=None, task="coord", unc="MLE"):
+        """The training CLI's net for `task` (semantics full size), seeded."""
         import torch
 
         from crossloc_tpu_torch import data, models
 
-        m = models.build_network("coord", "MLE", mean=list(data.get_label_mean("urbanscape",
-                                                                                "coord")))
+        m = models.build_network(task, unc, fullsize=task == "semantics",
+                                 mean=list(data.get_label_mean("urbanscape", task)))
         models.init_weights(m, torch.Generator().manual_seed(2021)).to(device)
         if dtype is not None:
             m.dtype = dtype
@@ -1022,7 +1215,7 @@ class Smoke:
         return m.to(memory_format=torch.channels_last) if device == "cuda" else m
 
     def _gradients_against_cpu(self, datasets, make_model=None, section="train_sim",
-                               yardstick=("cpu",)):
+                               yardstick=("cpu",), task="coord", unc="MLE"):
         """One step at full width, 480x720, B=2, same weights and batch: the
         card (K1, K1-bwd, TF32 off) against the CPU (plain twins) in float32,
         and both against the CPU in float64 (the loss stays float32). Only
@@ -1063,7 +1256,7 @@ class Smoke:
 
         make_model = make_model or self._model
         grads, losses = {}, {}
-        batch = self._train_batch(datasets, 2, "cpu", section=section)
+        batch = self._train_batch(datasets, 2, "cpu", section=section, task=task)
         cards = ("card", "card_native", "card_plain_bwd", "card_plain")
         for run, dev, dtype in ([(c, "cuda", torch.float32) for c in cards]
                                 + [("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64)]):
@@ -1075,7 +1268,7 @@ class Smoke:
             b = TrainBatch(*(t.to(dev, dtype) for t in batch))
             t = time.perf_counter()
             with variant(run):
-                m = train_step(state, b, "coord", "MLE")
+                m = train_step(state, b, task, unc)
             losses[run] = float(m["loss"])
             named = dict(model.named_parameters())
             if any(p.grad is not None for p in named.values() if not p.requires_grad):
@@ -1095,11 +1288,12 @@ class Smoke:
         d_cpu64 = dist("cpu", "cpu64")
         d_yard = [dist(y, "cpu64") for y in yardstick]
         ref = {k: max(d[k] for d in d_yard) for k in norm}
+        failed = False
         for card in cards:
             d_cc, d_c64 = dist(card, "cpu"), dist(card, "cpu64")
             rel = {k: d_cc[k] / max(norm[k], 1e-30) for k in norm}
             worst = sorted(rel, key=rel.get, reverse=True)[:4]
-            log(f"gradients {card} vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / "
+            log(f"{task} gradients {card} vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / "
                 f"|g_cpu| median {sorted(rel.values())[len(rel) // 2]:.3e} over {len(rel)} "
                 f"tensors, {sum(v > 1e-3 for v in rel.values())} above 1e-3; worst "
                 + ", ".join(f"{k} {rel[k]:.3e} (card vs f64 {d_c64[k] / norm[k]:.3e}, CPU f32 "
@@ -1119,8 +1313,9 @@ class Smoke:
             log(f"  {card}: tensors over the limit with the CPU f32's rounding: "
                 f"{over['CPU f32 rounding']}; with the rounding of {'/'.join(yardstick)}: "
                 f"{over['yardstick']}; loss vs CPU rel {d_loss:.3e} (limit 1e-4)")
-            if card == "card" and (over["yardstick"] or d_loss > 1e-4):
-                raise AssertionError("card gradients disagree with the CPU's")
+            failed = failed or (card == "card" and bool(over["yardstick"] or d_loss > 1e-4))
+        if failed:
+            raise AssertionError(f"{task}: card gradients disagree with the CPU's")
 
     def _fixed_batch_descends(self, datasets):
         import torch
@@ -1137,11 +1332,11 @@ class Smoke:
             raise AssertionError("the loss did not go down on a fixed batch")
 
     def _step_time(self, datasets, make_model=None, batch_size=TRAIN_BATCH,
-                   section="train_sim", out_name="train.json"):
+                   section="train_sim", out_name="train.json", task="coord", unc="MLE"):
         """One training step (augmentation of uint8 images, forward, loss,
         backward, Adam over the trainable parameters) at `batch_size`,
         between CUDA events, f32 (TF32 off) and bf16, with img/s and peak
-        memory."""
+        memory; returns {dtype: {ms, img_s, peak_gib}}."""
         import torch
 
         from crossloc_tpu_torch import data
@@ -1149,11 +1344,9 @@ class Smoke:
 
         make_model = make_model or self._model
         B = batch_size
-        b = data.CamLocDataset(os.path.join(datasets, "urbanscape", section),
-                               image_height=IMG_H).collate(range(B))
-        wire = torch.from_numpy(data.images_to_wire(b["image"])).cuda()
-        labels, poses = torch.from_numpy(b["coord"]).cuda(), torch.from_numpy(b["pose"]).cuda()
-        focal = torch.tensor(float(b["focal"][0]), device="cuda")
+        images, labels, poses, focal = (t.cuda() for t in self._host_batch(datasets, B, section,
+                                                                             task))
+        wire = torch.from_numpy(data.images_to_wire(images.cpu().numpy())).cuda()
         draws = data.draw_augmentation(torch.Generator().manual_seed(0), B).to("cuda")
         out = {}
         os.makedirs(self.out_dir, exist_ok=True)
@@ -1164,29 +1357,33 @@ class Smoke:
 
             def step():
                 im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
-                                                         poses, focal, draws)
-                return train_step(state, TrainBatch(im, po, lab, fo, pp), "coord", "MLE")
+                                                         poses, focal, draws,
+                                                         semantics=task == "semantics")
+                return train_step(state, TrainBatch(im, po, lab, fo, pp), task, unc)
 
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(step, iters=5, warmup=2)
             peak = torch.cuda.max_memory_allocated() / 2**30
             name = str(dtype)[6:]
             out[name] = dict(ms=ms, img_s=1e3 * B / ms, peak_gib=peak)
-            log(f"{out_name[:-5]} step B={B} {IMG_H}x{IMG_W} {name} on {self.device_name} "
+            log(f"{out_name[:-5]} step ({task}) B={B} {IMG_H}x{IMG_W} {name} on {self.device_name} "
                 f"({nvidia_smi_line()}): {ms:.2f} ms = {1e3 * B / ms:.1f} img/s, "
                 f"peak memory {peak:.2f} GiB")
             del model, state
         with open(os.path.join(self.out_dir, out_name), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), batch=B,
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), batch=B, task=task,
                            steps=out), f, indent=1)
+        return out
 
     # -- extra phase, not in the default run ---------------------------------
     def phase_profile(self):
-        """Where the time of one image -> pose batch, one training step and
-        one finetune step goes, by kernel group (torch.profiler), and the
-        device's busy share of the wall time."""
+        """Where the time of one image -> pose batch, one training step (coord
+        and semantics) and one finetune step goes, by kernel group
+        (torch.profiler), and the device's busy share of the wall time."""
         self._profile_serve()
         self._profile_step(self._model, TRAIN_BATCH, "train")
+        self._profile_step(lambda dev, dtype: self._model(dev, dtype, "semantics", None),
+                           TRAIN_BATCH, "semantics", task="semantics")
         self._profile_step(self._mlr_model, FT_BATCH, "finetune")
 
     @staticmethod
@@ -1209,10 +1406,10 @@ class Smoke:
             g[1] += e.time_range.elapsed_us() / 1e3
         return sum(g[1] for g in groups.values()), len(kernels), groups
 
-    def _profile_step(self, make_model, B, tag):
+    def _profile_step(self, make_model, B, tag, task="coord"):
         """One training step (augmentation, forward, loss, backward, Adam) of
         `make_model`'s net at batch B, 480x720, f32 and bf16, on a seeded
-        synthetic batch."""
+        synthetic batch (semantics: class ids on the image canvas)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -1225,6 +1422,9 @@ class Smoke:
         mean = torch.tensor(data.get_label_mean("urbanscape", "coord"), device="cuda")
         labels = mean + 20 * torch.randn(B, IMG_H // 8, IMG_W // 8, 3, device="cuda",
                                          generator=gen)
+        if task == "semantics":
+            labels = torch.randint(0, 6, (B, IMG_H, IMG_W, 1), device="cuda", generator=gen,
+                                   dtype=torch.uint8)
         poses = torch.eye(4, device="cuda").repeat(B, 1, 1)
         poses[:, :3, 3] = mean - torch.tensor([0.0, 0.0, 90.0], device="cuda")
         focal = torch.tensor(480.0, device="cuda")
@@ -1236,9 +1436,10 @@ class Smoke:
 
             def step():
                 im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels,
-                                                         poses, focal, draws)
-                return float(train_step(state, TrainBatch(im, po, lab, fo, pp), "coord",
-                                        "MLE")["loss"])
+                                                         poses, focal, draws,
+                                                         semantics=task == "semantics")
+                return float(train_step(state, TrainBatch(im, po, lab, fo, pp), task,
+                                        None if task == "semantics" else "MLE")["loss"])
 
             step(), step()
             torch.cuda.synchronize()
@@ -1303,7 +1504,7 @@ class Smoke:
         return json.dumps({"kernels": out})
 
 
-PHASES = ("card", "kernels", "forward", "serve", "train", "finetune")
+PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks")
 EXTRA_PHASES = ("profile",)
 
 

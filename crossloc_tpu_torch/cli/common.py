@@ -15,13 +15,17 @@ from ..data import CamLocDataset, Loader, get_label_mean
 from ..device import resolve_device
 
 _VANILLA_TODO = ("scenes outside urbanscape / naturescape need the vanilla net, "
-                 "ROADMAP queue 1, item 11 (other tasks and DUC)")
+                 "ROADMAP queue 1, item 11 (vanilla net)")
 
 
 def select_device_from_env(device: Optional[str] = None) -> torch.device:
     """The device of `--device`; for CUDA, `CROSSLOC_DEVICE_ORDINAL` (the bash
     harness's DEVICE_ID slot, `script_clean_training/_lib.sh`) picks the
-    card. Raises when CUDA is asked for and absent."""
+    card. Raises when CUDA is asked for and absent. Turns TF32 off for
+    cuDNN's convolutions and for matmuls: float32 runs compute in float32,
+    as the JAX package does (`--bf16` is the reduced-precision mode)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = resolve_device(device)
     ordinal = os.environ.get("CROSSLOC_DEVICE_ORDINAL")
     if dev.type == "cuda" and dev.index is None and ordinal is not None:
@@ -31,6 +35,12 @@ def select_device_from_env(device: Optional[str] = None) -> torch.device:
                                f"{torch.cuda.device_count()} CUDA devices")
         logging.info("Selected device %s via CROSSLOC_DEVICE_ORDINAL", dev)
     return dev
+
+
+def require_family_scene(scene: str) -> None:
+    """Raise for scenes outside urbanscape / naturescape (the vanilla net)."""
+    if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
+        raise NotImplementedError(_VANILLA_TODO)
 
 
 def resolve_train_roots(scene: str, task: str, real_data_domain: str, real_data_chunk: float,
@@ -90,8 +100,7 @@ def build_network(scene: str, task: str, tiny: bool, grayscale: bool,
                   dtype: torch.dtype = torch.float32) -> models.TransPoseNet:
     """TransPoseNet for the task with the scene's output mean; `num_mlr`
     towers of which the first `num_unfrozen_encoder` train."""
-    if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
-        raise NotImplementedError(_VANILLA_TODO)
+    require_family_scene(scene)
     return models.build_network(task, uncertainty=uncertainty, tiny=tiny, grayscale=grayscale,
                                 fullsize=fullsize, num_mlr=num_mlr,
                                 num_unfrozen_encoder=num_unfrozen_encoder,

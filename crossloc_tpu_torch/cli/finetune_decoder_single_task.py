@@ -65,6 +65,9 @@ def main(argv=None) -> str:
     parser = _extend_parser(config_parser("Fine-tune a task decoder over frozen MLR encoders."))
     opt = normalize_opt(parser.parse_args(argv))
     _reject_unported(opt)
+    if opt.task != "coord":
+        # the decoder starts from the coord weight's: its head fits no other task
+        raise ValueError(f"--task {opt.task}: the MLR decoder finetune takes --task coord")
     encoder_paths = check_encoders(list(opt.encoders), opt.coord_weight, opt.depth_weight,
                                    opt.normal_weight, opt.semantics_weight)
     if opt.reuse_coord_encoder:

@@ -1,7 +1,8 @@
-"""Evaluate trained weights on the coord task: image -> pose through the
-port's net and solver, on the card unless `--device cpu`. A finetuned MLR
-net's tower count comes from its folder's name ("decoder_coord_free_depth_
-normal" holds three).
+"""Evaluate trained weights on the card unless `--device cpu`: image -> pose
+through the port's net and solver for the coord task; per-batch depth and
+normal errors and per-image segmentation scores for the other tasks. A
+finetuned MLR net's tower count comes from its folder's name
+("decoder_coord_free_depth_normal" holds three).
 
     python -m crossloc_tpu_torch.cli.test_single_task urbanscape --task coord \
         --uncertainty MLE --network_in <dir or model.net> --section val_drone_real
@@ -26,9 +27,9 @@ import torch
 from .. import compat, eval as evaluation, models, ransac
 from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
 from ..losses import get_nodata_value
-from .common import infer_num_encoders, select_device_from_env
+from .common import infer_num_encoders, require_family_scene, select_device_from_env
 
-_TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
+_PLOT_TODO = "--plot (cli/visualize.py) is ROADMAP queue 1, item 11 (visualize)"
 _PARALLEL_TODO = "--num_devices > 1 is ROADMAP queue 1, item 13 (parallel)"
 
 
@@ -176,12 +177,11 @@ def _ransac_config(opt, fullsize: bool) -> ransac.RansacConfig:
 def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, tiny,
                      fullsize, uncertainty) -> str:
     """Evaluate one weight file over all sections; returns the results path."""
-    if task != "coord":
-        raise NotImplementedError(_TASK_TODO)
     if int(getattr(opt, "num_devices", 1) or 1) > 1:
         raise NotImplementedError(_PARALLEL_TODO)
-    if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
-        raise NotImplementedError(f"scene={scene}: the DSAC*-style vanilla net is not ported")
+    if task == "semantics" and getattr(opt, "plot", False):
+        raise NotImplementedError(_PLOT_TODO)
+    require_family_scene(scene)
     device = select_device_from_env(getattr(opt, "device", None))
     nodata_value = get_nodata_value(scene)
     model = models.build_network(
@@ -204,15 +204,19 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
     for this_section in sections:
         print("{:s} Evaluating over section {:s} {:s}".format("*" * 20, this_section, "*" * 20))
         eval_set = CamLocDataset(resolve_eval_roots(scene, this_section, opt.datasets_dir),
+                                 coord=task == "coord", depth=task == "depth",
+                                 normal=task == "normal", semantics=task == "semantics",
                                  image_height=opt.image_height)
         loader = Loader(eval_set, batch_size=opt.batch_size)
-        if opt.save_pred:
+        if opt.save_pred and task == "coord":
             pred_dir = os.path.abspath(os.path.join(
                 network_path, "../{:s}_pred_{:s}_{:s}".format(
                     task, os.path.basename(network_path), this_section)))
             os.makedirs(pred_dir, exist_ok=True)
 
         t_err_ls, r_err_ls, est_xyz_ls, coords_error_ls, file_name_ls = [], [], [], [], []
+        depth_ar_ls, depth_rms_ls, normal_err_ls = [], [], []
+        miou_ls, fwiou_ls, acc_ls = [], [], []
         # the JAX package's PRNG stream cannot be reproduced in torch: the
         # port draws its hypotheses from its own generator, seeded alike
         gen = torch.Generator(device=device).manual_seed(2021)
@@ -225,17 +229,40 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
             if grayscale:
                 images = to_grayscale(images)
             preds = model(images)
-            coords = preds[..., :ntc]
-            res = ransac.solve_batch(coords, torch.from_numpy(batch["focal"]).to(device),
-                                     (images.shape[1], images.shape[2]), cfg, generator=gen)
-            return dict(batch=batch, preds=preds, res=res)
+            d = dict(batch=batch, preds=preds)
+            if task == "coord":
+                d["res"] = ransac.solve_batch(preds[..., :ntc],
+                                              torch.from_numpy(batch["focal"]).to(device),
+                                              (images.shape[1], images.shape[2]), cfg,
+                                              generator=gen)
+            elif task == "semantics":
+                # the class map leaves the card, not the full-size logits
+                d["classes"] = torch.argmax(preds, dim=-1)
+            return d
 
         def consume(d):
             batch = d["batch"]
+            file_name_ls.extend(os.path.basename(f) for f in batch["file_name"])
+            if task == "depth":
+                ar, rms = evaluation.depth_eval(d["preds"][..., :ntc].cpu(), batch["depth"],
+                                                nodata_value)
+                depth_ar_ls.append(ar)
+                depth_rms_ls.append(rms)
+                return
+            if task == "normal":
+                normal_err_ls.append(evaluation.normal_eval(d["preds"][..., :ntc].cpu(),
+                                                            batch["normal"], nodata_value))
+                return
+            if task == "semantics":
+                miou, fwiou, acc = evaluation.semantic_scores(d["classes"].cpu().numpy(),
+                                                              batch["semantics"], ntc)
+                miou_ls.append(miou)
+                fwiou_ls.append(fwiou)
+                acc_ls.append(acc)
+                return
             preds = d["preds"].cpu()
             cam_to_world = d["res"].cam_to_world.cpu()
             labels = batch["coord"]
-            file_name_ls.extend(os.path.basename(f) for f in batch["file_name"])
             for b in range(preds.shape[0]):
                 t_err, r_err = evaluation.pose_err(batch["pose"][b], cam_to_world[b])
                 t_err_ls.append(t_err)
@@ -271,10 +298,19 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
             consume(pending)
 
         print("{:s} Evaluating over section {:s} is done!{:s}".format("*" * 20, this_section, "*" * 20))
-        eval_str = evaluation.scene_coords_report(
-            t_err_ls, r_err_ls, est_xyz_ls, coords_error_ls, testing_log,
-            network_path, this_section, file_name_ls,
-        )
+        if task == "coord":
+            eval_str = evaluation.scene_coords_report(
+                t_err_ls, r_err_ls, est_xyz_ls, coords_error_ls, testing_log,
+                network_path, this_section, file_name_ls,
+            )
+        elif task == "depth":
+            eval_str = evaluation.depth_report(depth_ar_ls, depth_rms_ls, testing_log,
+                                               this_section)
+        elif task == "normal":
+            eval_str = evaluation.normal_report(normal_err_ls, testing_log, this_section)
+        else:
+            eval_str = evaluation.semantic_report(acc_ls, miou_ls, fwiou_ls, testing_log,
+                                                  this_section)
         print(eval_str)
 
     print("Network testing finished. Please find the log at {:s}".format(testing_log))

@@ -3,16 +3,21 @@
 
     python -m crossloc_tpu_torch.cli.train_single_task urbanscape --task coord \
         --uncertainty MLE --batch_size 12 --learningrate 2e-4 --auto_resume
+    python -m crossloc_tpu_torch.cli.train_single_task urbanscape --task semantics \
+        --fullsize --uncertainty none --batch_size 12 --epochs 30 --auto_resume
 
 Flags, output-directory names, `output.log` lines, the `model.net` and
 `ckpt_iter_*.net` cadence, `FLAG_training_done.nodata` and the resume
 bookkeeping are those of `crossloc_tpu/cli/train_single_task.py`; `--device`
 is added (default cuda). A step moves uint8 images to the device, augments
 them there with draws from a generator keyed by (epoch, batch), so that a
-resumed run draws as an uninterrupted one, and runs forward, coord loss,
-backward (K1's backward kernel on the card) and Adam. `--bf16` runs the
-convs and K1 in bfloat16; parameters, norm statistics, outputs and the loss
-stay float32.
+resumed run draws as an uninterrupted one, and runs forward, the task's
+loss (coord, depth, normal or semantics), backward (K1's backward kernel on
+the card) and Adam. Semantics trains full size through the DUC head, its
+labels on the image canvas, sent to the card as uint8 class ids; with
+`--fullsize` the other tasks train against full-resolution labels. `--bf16`
+runs the convs and K1 in bfloat16; parameters, norm statistics, outputs and
+the loss stay float32.
 
 Two departures from the JAX CLI, both fixes of its defects (ROADMAP queue
 3): a log-parse resume sets the LR schedule's clock to the resumed step
@@ -40,13 +45,11 @@ from ..data import (
     images_from_wire,
     images_to_wire,
 )
-from ..losses import CoordLossConfig, get_nodata_value
+from ..losses import CoordLossConfig, DepthLossConfig, NormalLossConfig, get_nodata_value
 from ..train import CheckpointManager, TrainBatch, TrainState, make_optimizer, train_step
 from ..utils import config_log, read_training_log
 from . import common
 
-_TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
-_FULLSIZE_TODO = "--fullsize (DUC output) is ROADMAP queue 1, item 11 (other tasks and DUC)"
 _E2E_TODO = "--e2e_pose_loss is ROADMAP queue 1, item 12 (DSAC e2e)"
 _PARALLEL_TODO = "--num_devices > 1, --zero and --ckpt_backend orbax are ROADMAP queue 1, item 13"
 
@@ -125,10 +128,14 @@ def normalize_opt(opt):
 
 
 def _reject_unported(opt) -> None:
-    if opt.task != "coord":
-        raise NotImplementedError(_TASK_TODO)
-    if opt.fullsize:
-        raise NotImplementedError(_FULLSIZE_TODO)
+    """Refuse, before anything is written, what the port cannot run: flags of
+    open ROADMAP items, scenes of the vanilla net, and the net configurations
+    the JAX package's `build_network` refuses."""
+    common.require_family_scene(opt.scene)
+    if opt.task == "semantics" and opt.uncertainty is not None:
+        raise NotImplementedError("semantics has no uncertainty head: pass --uncertainty none")
+    if opt.task == "semantics" and not opt.fullsize:
+        raise NotImplementedError("semantics requires --fullsize (the DUC output)")
     if opt.e2e_pose_loss:
         raise NotImplementedError(_E2E_TODO)
     if opt.num_devices > 1 or opt.zero or opt.ckpt_backend == "orbax":
@@ -145,6 +152,15 @@ def get_output_path(opt) -> str:
         real_only=opt.real_only, tiny=opt.tiny, network_in=opt.network_in,
         debug=opt.debug, e2e=opt.e2e_pose_loss, bf16=opt.bf16)
     return os.path.abspath(os.path.join("output", name))
+
+
+def labels_to_wire(batch: dict, task: str) -> dict:
+    """The semantics labels as uint8 class ids [B, H, W, 1] (the dataset's
+    trimmed ids are 0..5): an eighth of the int64 bytes to the card; other
+    tasks' labels go as they are."""
+    if task != "semantics":
+        return {}
+    return {"semantics": batch["semantics"][..., None].astype(np.uint8)}
 
 
 def augment_generator(epoch: int, batch_idx: int) -> torch.Generator:
@@ -195,12 +211,20 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     trainable = [p for p in model.parameters() if p.requires_grad]
     state = TrainState(model, make_optimizer(trainable, opt.learningrate, steps_per_epoch,
                                              opt.no_lr_scheduling))
-    save_period = 5  # epochs between ckpt_iter_*.net files (coord)
+    save_period = 1 if opt.task == "semantics" else 5  # epochs between ckpt_iter_*.net files
 
-    aug_cfg = AugmentConfig(grayscale=opt.grayscale, nodata_value=nodata_value)
+    # --fullsize trains against full-resolution labels (subsample 1);
+    # semantics labels are full size whatever the flag, on the image canvas
+    semantics = opt.task == "semantics"
+    subsample = 1 if (opt.fullsize and not semantics) else 8
+    aug_cfg = AugmentConfig(grayscale=opt.grayscale, nodata_value=nodata_value,
+                            subsample=subsample)
     coord_cfg = CoordLossConfig(min_depth=opt.mindepth, soft_clamp=opt.softclamp,
                                 hard_clamp=opt.hardclamp, init_tolerance=opt.inittolerance,
+                                nodata_value=nodata_value, subsample=subsample)
+    depth_cfg = DepthLossConfig(min_depth=opt.mindepth, hard_clamp=opt.hardclamp,
                                 nodata_value=nodata_value)
+    normal_cfg = NormalLossConfig(hard_clamp=opt.hardclamp, nodata_value=nodata_value)
     manager = None
     if opt.ckpt_backend != "none":
         manager = CheckpointManager(output_dir, backend=opt.ckpt_backend)
@@ -235,7 +259,8 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     for epoch in range(start_epoch, opt.epochs):
         logging.info("=== Epoch: %d ======================================" % epoch)
         loader.set_epoch(epoch)
-        wire = (dict(b, image=images_to_wire(b["image"])) for b in loader)
+        wire = (dict(b, image=images_to_wire(b["image"]), **labels_to_wire(b, opt.task))
+                for b in loader)
         for batch_idx, batch in enumerate(
                 device_prefetch(wire, device, keys=("image", "pose", opt.task))):
             start_time = time.time()
@@ -244,9 +269,10 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
             focal = torch.tensor(float(batch["focal"][0]), device=device)
             images, labels, poses, focal, pp_shift = augment_batch(
                 images_from_wire(batch["image"]), batch[opt.task], batch["pose"], focal,
-                draws.to(device), aug_cfg)
+                draws.to(device), aug_cfg, semantics=semantics)
             metrics = train_step(state, TrainBatch(images, poses, labels, focal, pp_shift),
-                                 opt.task, opt.uncertainty, nodata_value, coord_cfg)
+                                 opt.task, opt.uncertainty, nodata_value, coord_cfg, depth_cfg,
+                                 normal_cfg)
             loss = float(metrics["loss"])
             valid_rate = float(metrics["valid_rate"])
             time_avg = (time.time() - start_time) / B

@@ -12,6 +12,7 @@ grammar (a copy of `crossloc_tpu/compat/torch_import.py:24-101`):
     decoder/mean                    ->  decoder.mean and the top-level mean
     mlr_encoder_{i}, mlr_norm, mlr_forward (a ResBlock), mlr_skip/ConvGN_0
                                     ->  the same names, mlr_skip.0 / .1
+    decoder/duc/ConvGN_0 (full size) ->  decoder.duc_upsample.conv / .norm
 """
 from __future__ import annotations
 
@@ -57,7 +58,7 @@ def _encoder_entries(tprefix: str, fprefix: str, tiny: bool, add_res: int):
     return e
 
 
-def _decoder_entries(tprefix: str, fprefix: str, add_res: int):
+def _decoder_entries(tprefix: str, fprefix: str, add_res: int, full_size: bool):
     e = [(f"{tprefix}mean", f"{fprefix}/mean", "copy")]
     for k in range(1, add_res + 1):
         e += _seq_res_block(f"{tprefix}dec_add_res_block{k}", f"{fprefix}/add_res{k}")
@@ -65,6 +66,9 @@ def _decoder_entries(tprefix: str, fprefix: str, add_res: int):
         e += _convgn(f"{tprefix}res3_conv{i}", f"{tprefix}res3_norm{i}", f"{fprefix}/res3_{i}")
     e += _convgn(f"{tprefix}fc1", f"{tprefix}fc1_norm", f"{fprefix}/fc1")
     e += _convgn(f"{tprefix}fc2", f"{tprefix}fc2_norm", f"{fprefix}/fc2")
+    if full_size:
+        e += _convgn(f"{tprefix}duc_upsample.conv", f"{tprefix}duc_upsample.norm",
+                     f"{fprefix}/duc/ConvGN_0")
     e += _conv_entries(f"{tprefix}fc3", f"{fprefix}/fc3")
     return e
 
@@ -82,7 +86,8 @@ def transpose_net_key_map(model) -> List[Tuple[str, str, str]]:
         entries += _norm_entries("mlr_norm", "mlr_norm")
         entries += _seq_res_block("mlr_forward", "mlr_forward")
         entries += _convgn("mlr_skip.0", "mlr_skip.1", "mlr_skip/ConvGN_0")
-    return entries + _decoder_entries("decoder.", "decoder", model.dec_add_res_block)
+    return entries + _decoder_entries("decoder.", "decoder", model.dec_add_res_block,
+                                      model.full_size_output)
 
 
 def _get_path(tree: dict, path: str):

@@ -4,7 +4,8 @@
 Per image: ColorJitter brightness and contrast, then the dataset
 normalisation. Per batch: ONE scale, ONE in-plane angle and ONE crop offset,
 applied through an inverse affine map onto the fixed canvas: bilinear with
-clamped borders for images, nearest for labels, fill -1 outside. The focal
+clamped borders for images, nearest for labels, fill -1 outside (semantics
+labels: on the image's own map, fill 0). The focal
 scales, the pose is post-multiplied by the in-plane rotation, and the crop
 offset's principal-point shift is returned for the loss's camera.
 
@@ -155,9 +156,11 @@ def rotation_z_pose(angle_rad):
 
 
 def augment_batch(images, labels, poses, focal, draws: AugmentDraws,
-                  cfg: AugmentConfig = AugmentConfig()):
+                  cfg: AugmentConfig = AugmentConfig(), semantics: bool = False):
     """images [B, H, W, 3] raw [0, 1]; labels [B, h, w, C] on the subsampled
-    grid; poses [B, 4, 4]; focal [] or [B]; `draws` on the images' device.
+    grid, or with `semantics` [B, H, W, 1] class ids of any dtype on the
+    image canvas (filled with 0 outside, not nodata); poses [B, 4, 4];
+    focal [] or [B]; `draws` on the images' device.
     Returns (normalised images, labels, poses, focal, pp_shift [2])."""
     B, H, W, _ = images.shape
     scale = draws.scale
@@ -176,10 +179,13 @@ def augment_batch(images, labels, poses, focal, draws: AugmentDraws,
     rx, ry = _inverse_affine_coords(H, W, H, W, scale, angle_rad, tx, ty)
     images = _bilinear_sample(images, rx, ry, cfg.nodata_value)
 
-    h, w = labels.shape[1], labels.shape[2]
-    ss = cfg.subsample  # label cells: the crop offset in cells is t / subsample
-    lrx, lry = _inverse_affine_coords(h, w, h, w, scale, angle_rad, tx / ss, ty / ss)
-    labels = _nearest_sample(labels, lrx, lry, cfg.nodata_value)
+    if semantics:
+        labels = _nearest_sample(labels, rx, ry, 0)
+    else:
+        h, w = labels.shape[1], labels.shape[2]
+        ss = cfg.subsample  # label cells: the crop offset in cells is t / subsample
+        lrx, lry = _inverse_affine_coords(h, w, h, w, scale, angle_rad, tx / ss, ty / ss)
+        labels = _nearest_sample(labels, lrx, lry, cfg.nodata_value)
 
     rot = rotation_z_pose(angle_rad).to(poses.dtype)
     poses = (poses[..., :, :, None] * rot[None, None, :, :]).sum(-2)  # f32, no TF32

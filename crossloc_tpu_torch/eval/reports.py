@@ -1,5 +1,5 @@
 """Result writers with exact textual-format parity (counterpart of
-`crossloc_tpu/eval/reports.py`, coord task).
+`crossloc_tpu/eval/reports.py`).
 
 The strings are regex-scraped by the checkpoint selector
 (`script_clean_validation/select_ckpt.py`) and by downstream tooling, so the
@@ -11,6 +11,14 @@ import os
 from typing import Sequence
 
 import numpy as np
+
+
+def _append_section(testing_log: str, section: str, text: str) -> None:
+    """Append one section's block to the results file: its header line, then
+    `text`."""
+    with open(testing_log, "a") as f:
+        f.write("{:s} Evaluation on section {:s} {:s}".format("=" * 20, section, "=" * 20) + "\n")
+        f.write(text)
 
 
 def scene_coords_report(
@@ -49,10 +57,7 @@ def scene_coords_report(
     eval_str += "\nCoordinate regression error: mean {:.1f}, std {:.1f}, median {:.1f}".format(
         np.mean(coords_error), np.std(coords_error), np.median(coords_error))
 
-    with open(testing_log, "a") as f:
-        f.write("{:s} Evaluation on section {:s} {:s}".format("=" * 20, section, "=" * 20) + "\n")
-        f.write(eval_str)
-        f.write("\n")
+    _append_section(testing_log, section, eval_str + "\n")
 
     base = os.path.basename(network_path)
     out_dir = os.path.dirname(network_path)
@@ -67,3 +72,41 @@ def scene_coords_report(
         for file, pose_xyz in zip(file_name_ls, xyz):
             f.write(file + " {:.2f} {:.2f} {:.2f}".format(*pose_xyz) + "\n")
     return eval_str
+
+
+def depth_report(depth_abs_rel_ls, depth_rms_ls, testing_log: str, section: str) -> str:
+    """`depth_printout` (`utils/evaluation.py:270-291`)."""
+    ar = np.asarray(depth_abs_rel_ls)
+    rms = np.asarray(depth_rms_ls)
+    eval_str = "Depth accuracy:"
+    eval_str += "\nabsolute relative error, mean: {:.2f}%, median: {:.2f}%".format(
+        np.mean(ar) * 100.0, np.median(ar) * 100.0)
+    eval_str += "\nRMS error, mean: {:.2f}m, median: {:.2f}m".format(np.mean(rms), np.median(rms))
+    _append_section(testing_log, section, eval_str + "\n")
+    return eval_str
+
+
+def normal_report(normal_angular_err_ls, testing_log: str, section: str) -> str:
+    """`normal_printout` (`utils/evaluation.py:319-336`)."""
+    e = np.asarray(normal_angular_err_ls)
+    eval_str = "Surface normal accuracy:"
+    eval_str += "\nangular prediction error, mean: {:.1f} deg, median: {:.1f} deg".format(
+        np.mean(e), np.median(e))
+    _append_section(testing_log, section, eval_str + "\n")
+    return eval_str
+
+
+def semantic_report(accuracy_ls, mean_iou_ls, fw_iou_ls, testing_log: str, section: str) -> str:
+    """`semantic_printout` (`utils/evaluation.py:447-484`)."""
+    acc = np.concatenate([np.atleast_1d(a) for a in accuracy_ls])
+    miou = np.concatenate([np.atleast_1d(a) for a in mean_iou_ls])
+    fwiou = np.concatenate([np.atleast_1d(a) for a in fw_iou_ls])
+
+    lines = [
+        "Pixel accuracy, mean: {:.2f}, median: {:.2f}".format(np.mean(acc) * 100, np.median(acc) * 100),
+        "Mean IoU, mean: {:.2f}, median: {:.2f}".format(np.mean(miou) * 100, np.median(miou) * 100),
+        "Frequency weighted IoU, mean: {:.2f}, median: {:.2f}".format(
+            np.mean(fwiou) * 100, np.median(fwiou) * 100),
+    ]
+    _append_section(testing_log, section, "".join(ln + "\n" for ln in lines) + "\n")
+    return "\n".join(lines)

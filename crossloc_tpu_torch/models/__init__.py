@@ -1,5 +1,15 @@
 """TransPose nets on NHWC tensors."""
-from .layers import Conv, GroupNorm, MLRConcatenator, MLRSkip, ResBlock, conv_gn
+from .layers import (
+    Conv,
+    DenseUpsamplingConv,
+    GroupNorm,
+    MLRConcatenator,
+    MLRSkip,
+    ResBlock,
+    bilinear_resize,
+    conv_gn,
+    pixel_shuffle,
+)
 from .transpose_net import (
     TransPoseDecoder,
     TransPoseEncoder,
@@ -11,6 +21,7 @@ from .transpose_net import (
 
 __all__ = [
     "Conv",
+    "DenseUpsamplingConv",
     "GroupNorm",
     "MLRConcatenator",
     "MLRSkip",
@@ -18,8 +29,10 @@ __all__ = [
     "TransPoseDecoder",
     "TransPoseEncoder",
     "TransPoseNet",
+    "bilinear_resize",
     "build_network",
     "conv_gn",
     "init_weights",
+    "pixel_shuffle",
     "task_channels",
 ]

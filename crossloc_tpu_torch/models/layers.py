@@ -99,3 +99,38 @@ class MLRSkip(nn.Sequential):
 
     def forward(self, x):
         return conv_gn(x, self[0], self[1], relu=False)
+
+
+def pixel_shuffle(x, r: int):
+    """NHWC pixel shuffle in `nn.PixelShuffle`'s channel order (c major,
+    then r1, r2): [B, H, W, C*r*r] -> [B, H*r, W*r, C]."""
+    B, H, W, CRR = x.shape
+    C = CRR // (r * r)
+    x = x.reshape(B, H, W, C, r, r).permute(0, 1, 4, 2, 5, 3)  # B, H, r1, W, r2, C
+    return x.reshape(B, H * r, W * r, C)
+
+
+class DenseUpsamplingConv(nn.Module):
+    """The DUC head: 3x3 Conv -> GroupNorm -> ReLU (K1) -> pixel shuffle by
+    `rate`; keys `conv` / `norm` under its parent (`duc_upsample`)."""
+
+    def __init__(self, in_ch: int, rate: int, num_classes: int, num_groups: int = 32):
+        super().__init__()
+        self.rate = rate
+        self.conv, self.norm = conv_norm_pair(in_ch, rate * rate * num_classes, 3, 1, num_groups)
+
+    def forward(self, x):
+        return pixel_shuffle(conv_gn(x, self.conv, self.norm, relu=True), self.rate)
+
+
+def bilinear_resize(x, out_h: int, out_w: int):
+    """NHWC bilinear resize with half-pixel centres (`align_corners=False`,
+    no antialiasing). The JAX package's `jax.image.resize` antialiases when
+    it shrinks, so the two differ where the DUC output overshoots an image
+    whose sides are not multiples of 8 (ROADMAP R8); equal sizes are the
+    identity in both."""
+    if (x.shape[1], x.shape[2]) == (out_h, out_w):
+        return x
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return y.permute(0, 2, 3, 1)

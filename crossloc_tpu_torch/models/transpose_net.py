@@ -3,8 +3,10 @@
 `num_mlr` encoder towers merged by the MLR blocks (CrossLoc's finetuned
 decoder over mid-level representations).
 
-Output: [B, H/8, W/8, task + pos] in float32; the last `num_pos_channel`
-channels pass through exp(clip(x, -16.10, 13.82)) into [1e-7, 1e6]. The
+Output: [B, H/8, W/8, task + pos] in float32, or [B, H, W, task + pos] with
+`full_size_output` (the DUC head: 8x pixel shuffle, then a bilinear resize
+to the input's size); the last `num_pos_channel` channels pass through
+exp(clip(x, -16.10, 13.82)) into [1e-7, 1e6]. The
 per-scene output `mean` is a buffer, stored twice in the state dict like the
 reference (`decoder.mean` and the top-level `mean`).
 """
@@ -15,9 +17,19 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from .layers import Conv, GroupNorm, MLRConcatenator, MLRSkip, ResBlock, conv_gn, conv_norm_pair
+from .layers import (
+    Conv,
+    DenseUpsamplingConv,
+    GroupNorm,
+    MLRConcatenator,
+    MLRSkip,
+    ResBlock,
+    bilinear_resize,
+    conv_gn,
+    conv_norm_pair,
+)
 
-_DUC_TODO = "fullsize / DUC output is ROADMAP queue 1, item 11 (other tasks and DUC)"
+OUTPUT_SUBSAMPLE = 8
 
 
 def _widths(tiny: bool):
@@ -77,12 +89,13 @@ class TransPoseEncoder(nn.Module):
 
 
 class TransPoseDecoder(nn.Module):
-    """Residual blocks + 1x1 residual stage + fc head; `mean` is a buffer of
-    length num_task_channel added to the task channels."""
+    """Residual blocks + 1x1 residual stage + fc head (+ the DUC head with
+    `full_size_output`, before `fc3`); `mean` is a buffer of length
+    num_task_channel added to the task channels."""
 
     def __init__(self, num_task_channel: int = 3, num_pos_channel: int = 1, tiny: bool = False,
                  dec_add_res_block: int = 2, num_groups: int = 32,
-                 mean_init: Optional[Sequence[float]] = None):
+                 mean_init: Optional[Sequence[float]] = None, full_size_output: bool = False):
         super().__init__()
         _, wide = _widths(tiny)
         g = num_groups
@@ -97,9 +110,14 @@ class TransPoseDecoder(nn.Module):
             _add_pair(self, f"res3_conv{i}", f"res3_norm{i}", wide, wide, 1, 1, g)
         _add_pair(self, "fc1", "fc1_norm", wide, wide, 1, 1, g)
         _add_pair(self, "fc2", "fc2_norm", wide, wide, 1, 1, g)
-        self.fc3 = Conv(wide, num_task_channel + num_pos_channel, 1)
+        out_ch = num_task_channel + num_pos_channel
+        self.full_size_output = full_size_output
+        if full_size_output:
+            self.duc_upsample = DenseUpsamplingConv(wide, OUTPUT_SUBSAMPLE, out_ch, g)
+        self.fc3 = Conv(out_ch if full_size_output else wide, out_ch, 1)
 
-    def forward(self, x):
+    def forward(self, x, up_hw=None):
+        """`up_hw` (H, W): the size the DUC output is resized to."""
         res = x
         for k in range(1, self.dec_add_res_block + 1):
             res = torch.relu(res + getattr(self, f"dec_add_res_block{k}")(res))
@@ -109,6 +127,10 @@ class TransPoseDecoder(nn.Module):
         res = torch.relu(res + x)
         sc = conv_gn(res, self.fc1, self.fc1_norm, True)
         sc = conv_gn(sc, self.fc2, self.fc2_norm, True)
+        if self.full_size_output:
+            sc = self.duc_upsample(sc)
+            if up_hw is not None:
+                sc = bilinear_resize(sc, *up_hw)
         sc = self.fc3(sc).float()
         task = sc[..., : self.num_task_channel] + self.mean
         if self.num_pos_channel:
@@ -128,6 +150,7 @@ class TransPoseNet(nn.Module):
 
     `dtype` is the compute dtype of the convs and norms (float32 or
     bfloat16); norm statistics, params and the output stay float32.
+    `full_size_output` adds the DUC head and a full-size output.
     `stem_s2d` is accepted for flag compatibility: it is an exact re-layout
     of stems 1+2 in the JAX package, and the port computes the standard
     stems."""
@@ -138,8 +161,6 @@ class TransPoseNet(nn.Module):
                  full_size_output: bool = False, mean_init: Optional[Sequence[float]] = None,
                  dtype: torch.dtype = torch.float32, stem_s2d: bool = False):
         super().__init__()
-        if full_size_output:
-            raise NotImplementedError(_DUC_TODO)
         _, wide = _widths(tiny)
         self.num_task_channel = num_task_channel
         self.tiny = tiny
@@ -147,6 +168,7 @@ class TransPoseNet(nn.Module):
         self.dec_add_res_block = dec_add_res_block
         self.num_mlr = num_mlr
         self.num_unfrozen_encoder = num_unfrozen_encoder
+        self.full_size_output = full_size_output
         self.dtype = dtype
         in_ch = 1 if grayscale else 3
         if num_mlr == 0:
@@ -160,7 +182,8 @@ class TransPoseNet(nn.Module):
             self.mlr_norm = GroupNorm(min(num_groups, cat), cat)
             self.mlr_forward = MLRConcatenator(cat, wide, num_groups)
         self.decoder = TransPoseDecoder(num_task_channel, num_pos_channel, tiny,
-                                        dec_add_res_block, num_groups, mean_init)
+                                        dec_add_res_block, num_groups, mean_init,
+                                        full_size_output)
         # top-level duplicate of decoder.mean, as in the reference state dict
         self.register_buffer("mean", self.decoder.mean.clone())
 
@@ -169,10 +192,12 @@ class TransPoseNet(nn.Module):
         return [getattr(self, f"mlr_encoder_{i}") for i in range(1, self.num_mlr + 1)]
 
     def forward(self, x):
-        """[B, H, W, C] images -> [B, H/8, W/8, task + pos] float32."""
+        """[B, H, W, C] images -> [B, H/8, W/8, task + pos] float32 (full
+        size: [B, H, W, task + pos])."""
+        up_hw = (x.shape[1], x.shape[2]) if self.full_size_output else None
         x = x.to(self.dtype)
         if self.num_mlr == 0:
-            return self.decoder(self.encoder(x))
+            return self.decoder(self.encoder(x), up_hw)
         acts = []
         for i, tower in enumerate(self.towers()):
             with torch.set_grad_enabled(torch.is_grad_enabled() and i < self.num_unfrozen_encoder):
@@ -180,7 +205,7 @@ class TransPoseNet(nn.Module):
         mlr = torch.cat(acts, dim=-1)  # [B, h, w, wide * num_mlr], contiguous NHWC
         res = self.mlr_skip(mlr)
         mlr = self.mlr_forward(self.mlr_norm(mlr, relu=False))
-        return self.decoder(torch.relu(res + mlr))
+        return self.decoder(torch.relu(res + mlr), up_hw)
 
 
 def task_channels(task: str) -> int:

@@ -15,9 +15,15 @@ import torch
 from torch import nn
 
 from ..geometry import intrinsics
-from ..losses import CoordLossConfig, scene_coords_loss
-
-_TASK_TODO = "tasks other than coord are ROADMAP queue 1, item 11 (other tasks)"
+from ..losses import (
+    CoordLossConfig,
+    DepthLossConfig,
+    NormalLossConfig,
+    depth_loss,
+    normal_loss,
+    scene_coords_loss,
+    semantics_loss,
+)
 
 
 class TrainBatch(NamedTuple):
@@ -25,7 +31,7 @@ class TrainBatch(NamedTuple):
 
     images: torch.Tensor  # [B, H, W, C] normalised RGB or grayscale
     poses: torch.Tensor  # [B, 4, 4] cam-to-world
-    labels: torch.Tensor  # [B, h, w, C_task] task ground truth
+    labels: torch.Tensor  # [B, h, w, C_task] task ground truth; semantics: [B, H, W, 1] ids
     focal: torch.Tensor  # [] or [B] focal length (after augmentation)
     pp_shift: Optional[torch.Tensor] = None  # [2] principal-point offset of the
     # augmentation's crop window (data.augment_batch), or None
@@ -33,24 +39,34 @@ class TrainBatch(NamedTuple):
 
 def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optional[str],
                  num_task_channel: int, nodata_value: float = -1.0,
-                 coord_cfg: Optional[CoordLossConfig] = None, reduction: Optional[str] = "mean"):
-    """Split the uncertainty channel and compute the task loss: (loss, valid_rate)."""
+                 coord_cfg: Optional[CoordLossConfig] = None,
+                 depth_cfg: Optional[DepthLossConfig] = None,
+                 normal_cfg: Optional[NormalLossConfig] = None, reduction: Optional[str] = "mean"):
+    """Split the uncertainty channel and compute the task's loss: (loss, valid_rate)."""
     if uncertainty == "MLE":
         preds = predictions[..., :num_task_channel]
         unc = predictions[..., num_task_channel:]
     else:
         preds, unc = predictions, None
-    if task != "coord":
-        raise NotImplementedError(_TASK_TODO)
-    cfg = coord_cfg or CoordLossConfig(nodata_value=nodata_value)
-    img_h, img_w = batch.images.shape[1], batch.images.shape[2]
-    focal = batch.focal.reshape(-1)[0]
-    cam_mat = intrinsics(focal, img_w, img_h, device=focal.device)
-    if batch.pp_shift is not None:
-        shift = torch.zeros_like(cam_mat)
-        shift[0, 2], shift[1, 2] = batch.pp_shift[0], batch.pp_shift[1]
-        cam_mat = cam_mat + shift
-    return scene_coords_loss(preds, batch.labels, batch.poses, cam_mat, unc, cfg, reduction)
+    if task == "coord":
+        cfg = coord_cfg or CoordLossConfig(nodata_value=nodata_value)
+        img_h, img_w = batch.images.shape[1], batch.images.shape[2]
+        focal = batch.focal.reshape(-1)[0]
+        cam_mat = intrinsics(focal, img_w, img_h, device=focal.device)
+        if batch.pp_shift is not None:
+            shift = torch.zeros_like(cam_mat)
+            shift[0, 2], shift[1, 2] = batch.pp_shift[0], batch.pp_shift[1]
+            cam_mat = cam_mat + shift
+        return scene_coords_loss(preds, batch.labels, batch.poses, cam_mat, unc, cfg, reduction)
+    if task == "depth":
+        cfg = depth_cfg or DepthLossConfig(nodata_value=nodata_value)
+        return depth_loss(preds, batch.labels, unc, cfg, reduction)
+    if task == "normal":
+        cfg = normal_cfg or NormalLossConfig(nodata_value=nodata_value)
+        return normal_loss(preds, batch.labels, unc, cfg, reduction)
+    if task == "semantics":
+        return semantics_loss(preds, batch.labels, unc, reduction)
+    raise NotImplementedError(f"task={task}")
 
 
 def multistep_lr(base_lr: float, steps_per_epoch: int, milestones=(50, 100), gamma: float = 0.5,
@@ -99,7 +115,9 @@ def _global_norm(tensors) -> torch.Tensor:
 
 
 def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Optional[str],
-               nodata_value: float = -1.0, coord_cfg: Optional[CoordLossConfig] = None) -> dict:
+               nodata_value: float = -1.0, coord_cfg: Optional[CoordLossConfig] = None,
+               depth_cfg: Optional[DepthLossConfig] = None,
+               normal_cfg: Optional[NormalLossConfig] = None) -> dict:
     """One update in place; returns {"loss", "valid_rate", "grad_norm"} as
     0-d tensors on the device (reading them waits for the step)."""
     model, opt = state.model, state.optimizer
@@ -107,7 +125,7 @@ def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Opt
     opt.adam.zero_grad(set_to_none=True)
     preds = model(batch.images)
     loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
-                                    nodata_value, coord_cfg)
+                                    nodata_value, coord_cfg, depth_cfg, normal_cfg)
     loss.backward()
     grads = [p.grad for p in params if p.grad is not None]
     grad_norm = _global_norm(grads)

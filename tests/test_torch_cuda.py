@@ -254,6 +254,35 @@ def test_backward_matches_plain_at_path_shapes(card, shape, dtype, relu, design)
     _backward_of(design, x, s, b, G, relu, _off_kink_dy(x, s, b, G, seed=C + 1))
 
 
+# the DUC conv's norm at 480x720 (60x90): C = 64 x the output channels, 32
+# groups. C=192 and 384 (6 and 12 channels a group) take blocks of 24 (f32)
+# or 48 (bf16) channels, 252 threads (a partial last warp) and clusters of 8
+DUC_WIDTHS = [64, 128, 192, 256, 384]
+
+
+@pytest.mark.parametrize("design", ["planned", "three_pass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", DUC_WIDTHS)
+def test_kernel_matches_plain_at_duc_widths(card, C, dtype, design):
+    dt = getattr(torch, dtype)
+    x, s, b = _inputs((2, 60, 90), C, dt, card, seed=C)
+    plan = _plan(2, 60, 90, C, 32, dt)
+    assert plan.design == "cluster" and plan.cluster == (8 if C in (192, 384) else 4)
+    _check_against_plain(DESIGNS[design], x, s, b, 32)
+
+
+@pytest.mark.parametrize("design", ["planned", "four_kernel"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", DUC_WIDTHS)
+def test_backward_matches_plain_at_duc_widths(card, C, dtype, relu, design):
+    dt = getattr(torch, dtype)
+    x, s, b = _inputs((2, 60, 90), C, dt, card, seed=C + 2)
+    plan = _plan_backward(2, 60, 90, C, 32, dt)
+    assert plan.design == "cluster" and plan.cluster == 8
+    _backward_of(design, x, s, b, 32, relu, _off_kink_dy(x, s, b, 32, seed=C + 3))
+
+
 @pytest.mark.parametrize("design", ["planned", "four_kernel"])
 def test_backward_is_deterministic(card, design):
     x, s, b = _inputs((4, 60, 90), 256, torch.float32, card, seed=9)

@@ -203,7 +203,7 @@ def test_finetune_cli_matches_jax_trains_and_serves(ws, monkeypatch):
     ([], dict(reuse=False), ValueError, "needs --reuse_coord_encoder"),
     (["--encoders", "depth", "normal", "coord"], dict(reuse=False, unfreeze=False), ValueError,
      "list coord first"),
-    (["--task", "depth"], {}, NotImplementedError, "item 11"),
+    (["--task", "depth"], {}, ValueError, "takes --task coord"),
     (["--e2e_pose_loss"], {}, NotImplementedError, "item 12"),
     (["--device", "cuda"], {}, RuntimeError, "CUDA was requested"),
 ], ids=["unfreeze_without_reuse", "coord_not_first", "task", "e2e", "cuda"])

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from crossloc_tpu import compat as jcompat
 from crossloc_tpu import models as jmodels
 from crossloc_tpu_torch import compat, models
+from crossloc_tpu_torch.cli import common as cli_common
 
 
 HW_TINY, HW_FULL = (32, 48), (64, 96)
@@ -119,7 +120,11 @@ def test_jax_saved_net_loads_strictly(tmp_path, full_params):
 
 
 def test_unported_configs_raise():
+    """What the JAX package's `build_network` refuses, and the vanilla net of
+    scenes outside urbanscape / naturescape (item 11)."""
+    with pytest.raises(NotImplementedError, match="no uncertainty head"):
+        models.build_network("semantics", "MLE", fullsize=True)
+    with pytest.raises(NotImplementedError, match="requires fullsize"):
+        models.build_network("semantics", None)
     with pytest.raises(NotImplementedError, match="item 11"):
-        models.build_network("coord", "MLE", num_mlr=2, fullsize=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        models.build_network("depth", "MLE", fullsize=True)
+        cli_common.build_network("cambridge", "coord", True, False, "MLE", False, [0.0] * 3)

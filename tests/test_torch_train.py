@@ -227,7 +227,11 @@ def test_checkpoint_manager_keeps_the_newest_five(tmp_path):
 
 
 def test_tasks_other_than_coord_raise(jax_net_and_params):
+    """Beyond the four tasks a step raises, and so does semantics with an
+    uncertainty channel (as in the JAX package)."""
     net = _port_model(jax_net_and_params[1])
     state = TrainState(net, make_optimizer(net.parameters(), 2e-4))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        train_step(state, _port_batch(_batch()), "depth", None)
+    with pytest.raises(NotImplementedError, match="task=pose"):
+        train_step(state, _port_batch(_batch()), "pose", None)
+    with pytest.raises(NotImplementedError, match="no uncertainty head"):
+        train_step(state, _port_batch(_batch()), "semantics", "MLE")

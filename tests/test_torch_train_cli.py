@@ -214,14 +214,23 @@ def test_trained_net_loads_in_the_jax_package(ws, monkeypatch):
 
 
 @pytest.mark.parametrize("flag, item", [
-    (["--task", "depth"], "item 11"), (["--fullsize"], "item 11"),
+    (["--task", "semantics", "--fullsize"], "no uncertainty head"),
+    (["--task", "semantics", "--uncertainty", "none"], "requires --fullsize"),
     (["--e2e_pose_loss"], "item 12"), (["--num_devices", "2"], "item 13"),
     (["--zero"], "item 13"), (["--ckpt_backend", "orbax"], "item 13"),
 ])
 def test_unported_flags_raise(ws, monkeypatch, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(cli.main, ws, _args(ws, "no", ["--device", "cpu", *flag]), monkeypatch)
-    assert not (ws / "output" / "no").exists()
+    assert not list(ws.glob("output/*-sno-*"))
+
+
+def test_vanilla_net_scene_raises(ws, monkeypatch):
+    """Scenes outside urbanscape / naturescape need the vanilla net (item 11)."""
+    args = _args(ws, "no", ["--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 11"):
+        _run(cli.main, ws, ["cambridge"] + args[1:], monkeypatch)
+    assert not list(ws.glob("output/cambridge-*"))
 
 
 def test_cuda_request_without_cuda_raises(ws, monkeypatch):
