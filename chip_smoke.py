@@ -49,9 +49,18 @@ Phases:
            lines finite), card gradients against the CPU for normal and
            semantics, the step times at B=12, a --bf16 semantics run, and TF32
            left off by the CLIs' own setup (ROADMAP F1);
+  e2e      DSAC end to end: one step of the full-width coord net at B=12
+           with the permissive solver config (28 + 28 launches, a positive
+           loss), one step on a two-mode input with the CLI's solver config
+           (card gradients against the CPU), the solver's coordinate gradient
+           against float64 on that input and on the label coordinates, P3P at
+           the step's 1,536 minimal sets against float64, `train_single_task
+           --e2e_pose_loss --e2e_warmup_epochs 1` on cuda (f32 and --bf16,
+           each served) and the e2e step time;
   profile  (extra, not in the default run) kernel-time breakdown of one
-           image -> pose batch, one coord and one semantics training step and
-           one finetune step with torch.profiler.
+           image -> pose batch, one coord and one semantics training step, one
+           finetune step and one e2e step with torch.profiler.
+The gradient checks' float64 reference runs on the card with the plain twins.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
 `{"ok": true, "device": {...}}`. Exits non-zero if any phase fails, if no
@@ -106,6 +115,9 @@ TASK_REPORT_LINES = {
     "normal": ("angular prediction error, mean:",),
     "semantics": ("Pixel accuracy, mean:", "Mean IoU, mean:", "Frequency weighted IoU, mean:")}
 FT_FWD, FT_BWD = 67, 33  # K1 per forward (3 x 17 + 5 + 11), K1-bwd per step (17 + 5 + 11)
+# the permissive solver config of the JAX package's DSAC test
+# (tests/test_train.py:411-416): an untrained net then has valid hypotheses
+E2E_PERMISSIVE = dict(inlier_threshold=5000.0, max_pixel_error=10000.0)
 
 # (C, H, W, relu, layers per forward) of the 28 Conv->GN layers at 480x720
 GN_PATH_SHAPES = [
@@ -221,6 +233,25 @@ def nvidia_smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def _on_target(net, target):
+    """`net` with the value of its coordinate channels replaced by `target`
+    [B, h, w, 3] and their gradient passed on to the net unchanged: the
+    solver sees a chosen input, and the backward runs through the whole net."""
+    import torch
+
+    class OnTarget(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.net, self.num_task_channel = net, net.num_task_channel
+
+        def forward(self, x):
+            out = self.net(x)
+            c = out[..., :3]
+            return torch.cat([c - c.detach() + target, out[..., 3:]], dim=-1)
+
+    return OnTarget()
 
 
 class Smoke:
@@ -1056,6 +1087,572 @@ class Smoke:
                       indent=1)
         shutil.rmtree(work, ignore_errors=True)
 
+    # -- phase 8 -----------------------------------------------------------
+    def phase_e2e(self):
+        """DSAC end-to-end training: one step of the full-width coord net at
+        B=12 with the permissive solver config (launches, a positive loss
+        from an untrained net), one step on a well-conditioned two-mode input
+        with the CLI's solver config and its gradients on the card against
+        the CPU, the solver's coordinate gradient against float64 on the two
+        inputs of `_e2e_solver_oracle`, P3P's forward and implicit backward at
+        the step's minimal sets against float64, the training CLI with
+        --e2e_pose_loss (f32 and --bf16, each model.net served), and the e2e
+        step's time, memory and launches (its staged profile: the `profile`
+        phase)."""
+        work, datasets = self._e2e_scene()
+        out = dict(device=self.device_name, smi=nvidia_smi_line())
+        out["permissive_step"] = self._e2e_permissive_step(datasets)
+        out["step_check"] = self._e2e_step_check(datasets)
+        out["oracle"] = self._e2e_solver_oracle(datasets)
+        out["p3p"] = self._e2e_p3p(datasets)
+        out["cli"] = {tag: self._e2e_cli(datasets, work, tag, extra)
+                      for tag, extra in (("f32", []), ("bf16", ["--bf16"]))}
+        out["step_time"] = self._e2e_step_time(datasets)
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "e2e.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    @staticmethod
+    def _e2e_scene():
+        """(work dir, datasets dir) with a 24-frame 480x720 plane train_sim and
+        an 8-frame val_drone_real."""
+        from crossloc_tpu_torch import data
+
+        work = WORK_DIR + "_e2e"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "train_sim"),
+                                n=2 * TRAIN_BATCH, img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=0,
+                                scene="plane")
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "val_drone_real"), n=BATCH,
+                                img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=1, scene="plane")
+        return work, datasets
+
+    @staticmethod
+    def _dtypes():
+        import torch
+
+        return (torch.float32, torch.bfloat16)
+
+    @staticmethod
+    def _e2e_idx():
+        """Seeded hypothesis draws of one e2e step at B=12: [B, H * rounds, 4]
+        over the 60 x 90 cells."""
+        import torch
+
+        return torch.randint(0, (IMG_H // 8) * (IMG_W // 8), (TRAIN_BATCH, 16 * 8, 4),
+                             generator=torch.Generator().manual_seed(7))
+
+    @staticmethod
+    def _e2e_inputs(labels):
+        """{name: float64 coordinates [B, 60, 90, 3]} made from the batch's
+        (augmented) label coordinates plus 5 cm of seeded noise. "converged":
+        that alone; every hypothesis refines to the one pose the labels
+        give. "two_mode": the right half of each image turned 5 degrees about
+        the vertical through the image's mean coordinate, a second rigid
+        mode: hypotheses refine to either pose, their pose losses differ and
+        the softmax over the scores is not saturated, so the gradient through
+        the scores and P3P is a real one."""
+        import torch
+
+        from crossloc_tpu_torch.geometry import rodrigues
+
+        lab = labels.double()
+        noise = torch.randn(lab.shape, generator=torch.Generator().manual_seed(4),
+                            dtype=torch.float64) * 0.05
+        mean = lab.flatten(1, 2).mean(1)[:, None, None, :]
+        R = rodrigues(torch.tensor([0.0, 0.0, math.radians(5.0)], dtype=torch.float64))
+        right = (torch.arange(lab.shape[2]) >= lab.shape[2] // 2)[None, None, :, None]
+        return {"converged": lab + noise,
+                "two_mode": torch.where(right, (lab - mean) @ R.T + mean, lab) + noise}
+
+    def _e2e_permissive_step(self, datasets):
+        """One DSAC step of the full-width seeded net at B=12, 480x720, f32,
+        with the permissive solver config (an untrained net's coordinates
+        then have valid hypotheses): 28 K1 and 28 K1-bwd launches, a finite
+        positive loss and a non-zero coord-head gradient."""
+        import torch
+
+        from crossloc_tpu_torch import ops, ransac
+        from crossloc_tpu_torch.train import TrainState, make_dsac_train_step, make_optimizer
+
+        cfg = ransac.RansacConfig(hypotheses=16, sample_rounds=8, train_refine_steps=2,
+                                  **E2E_PERMISSIVE)
+        model = self._model("cuda")
+        state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+        batch = self._train_batch(datasets, TRAIN_BATCH, "cuda")
+        step = make_dsac_train_step(model, cfg)
+        ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
+        m = step(state, batch, idx=self._e2e_idx().cuda())
+        torch.cuda.synchronize()
+        fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+        loss, head = float(m["loss"]), float(model.decoder.fc3.weight.grad.norm())
+        log(f"e2e step B={TRAIN_BATCH} {IMG_H}x{IMG_W} f32 (tau {cfg.inlier_threshold:g} px): "
+            f"loss {loss:.6f}, coord-head |grad| {head:.3e}, {fwd} K1 and {bwd} K1-bwd launches, "
+            f"valid hypotheses {float(m['valid_share']):.1%}")
+        self.launches["e2e_step"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        if (fwd, bwd) != (28, 28):
+            raise AssertionError(f"expected 28 K1 and 28 K1-bwd launches, got {fwd}/{bwd}")
+        if not (math.isfinite(loss) and loss > 0 and head > 0):
+            raise AssertionError("the e2e loss is not positive or the coord head got no gradient")
+        del model, state
+        return dict(loss=loss, coord_head_grad=head, k1=fwd, k1_bwd=bwd,
+                    valid_share=float(m["valid_share"]))
+
+    def _e2e_step_check(self, datasets):
+        """One DSAC step at B=12, 480x720, f32, seeded weights and draws, the
+        CLI's solver config, with the value of the net's coordinates moved
+        onto the "two_mode" input of `_e2e_inputs` (`_on_target`; the
+        gradient flows through the whole net, K1-bwd included): 28 K1 and 28
+        K1-bwd launches, and the card's gradients against the CPU's under
+        the yardstick rule (the larger of the CPU's and the card plain twin's
+        f32 distance from float64 with the card's plain twins). Decisions
+        that differ card vs CPU are printed."""
+        import torch
+
+        from crossloc_tpu_torch import ops
+        from crossloc_tpu_torch.train import dsac_step as dsac_mod
+        from crossloc_tpu_torch.train import make_dsac_train_step
+
+        idx = self._e2e_idx()
+        target = self._e2e_inputs(self._train_batch(datasets, TRAIN_BATCH, "cpu").labels)[
+            "two_mode"]
+        aux, launches = {}, {}
+        loss_fn = dsac_mod.expected_pose_loss
+
+        def step(state, b):
+            run = f"{b.images.device.type}{64 if b.images.dtype == torch.float64 else 32}"
+            model = state.model
+            state.model = _on_target(model, target.to(b.images.device, b.images.dtype))
+
+            def recording(*a, **k):
+                loss, x = loss_fn(*a, **k)
+                aux.setdefault(run, x)
+                return loss, x
+
+            dsac_mod.expected_pose_loss = recording
+            ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
+            try:
+                m = make_dsac_train_step(state.model)(state, b, idx=idx.to(b.images.device))
+                torch.cuda.synchronize()
+            finally:
+                dsac_mod.expected_pose_loss = loss_fn
+                state.model = model
+            launches.setdefault(run, (ops.group_norm_relu.launches,
+                                      ops.group_norm_relu_backward.launches))
+            return m
+
+        losses, grads = self._gradients_against_cpu(datasets, step=step, batch_size=TRAIN_BATCH,
+                                                    yardstick=("cpu", "card_plain"))
+        fwd, bwd = launches["cuda32"]
+        flips = {k: int((aux["cuda32"][k].cpu() != aux["cpu32"][k]).sum())
+                 for k in ("hyp_valid", "inliers")}
+        share = float(aux["cuda32"]["hyp_valid"].float().mean())
+        log(f"e2e step on the two-mode input, B={TRAIN_BATCH} {IMG_H}x{IMG_W} f32 (tau 10 px): "
+            f"loss {losses['card']:.6f}, {fwd} K1 and {bwd} K1-bwd launches, valid hypotheses "
+            f"{share:.1%}; decisions that differ card vs CPU: hyp_valid {flips['hyp_valid']} of "
+            f"{aux['cpu32']['hyp_valid'].numel()}, refined inlier counts {flips['inliers']} of "
+            f"{aux['cpu32']['inliers'].numel()}")
+        if (fwd, bwd) != (28, 28):
+            raise AssertionError(f"expected 28 K1 and 28 K1-bwd launches, got {fwd}/{bwd}")
+        return dict(losses=losses, k1=fwd, k1_bwd=bwd, flips=flips, valid_share=share)
+
+    def _e2e_solver_oracle(self, datasets):
+        """The expected pose loss and its gradient with respect to the
+        coordinates at B=12, 60 x 90 cells, the CLI's solver config, at
+        injected draws, on both inputs of `_e2e_inputs`, in four runs: card
+        f32, CPU f32, card f64 and CPU f64. Held, per input:
+          - the card's float64 gradient against the CPU's, per image whose
+            float64 decisions agree: within 1e-6 of its norm (every op of the
+            path, P3P's backward included, computes the same on the card);
+          - P3P's forward and implicit backward at the card f32 run's own
+            minimal sets, fed that run's own cotangents: the card's f32
+            within 1e-3 of the norm plus twice the CPU's f32 distance from
+            the CPU's float64 (the gradient checks' rule: a few
+            ill-conditioned sets carry most of either error).
+        Held on "two_mode" only: over the images whose decisions (valid
+        hypotheses, first valid round) agree in all four runs, at least half,
+        the card's f32 gradient within 1e-3 of the norm plus twice the CPU's
+        f32 distance from the card's float64; and P3P's share of the float64
+        gradient there at least 10 %, so that the check holds P3P's path.
+        Reported: per image errors, P3P's share and the largest |dL/dscore|.
+        On "converged" every hypothesis refines to one pose, the true
+        dL/dscore is 0 and the f32 one is the rounding of the hypotheses'
+        pose losses (arccos near 1), which the scores and P3P carry into the
+        coordinates: the f32 gradient is reported, not held."""
+        import torch
+
+        from crossloc_tpu_torch import ransac
+        from crossloc_tpu_torch.geometry import p3p_from_4pts
+        from crossloc_tpu_torch.ransac import loss as loss_mod
+        from crossloc_tpu_torch.ransac import solver as solver_mod
+
+        batch = self._train_batch(datasets, TRAIN_BATCH, "cpu")
+        cfg = ransac.RansacConfig(hypotheses=16, sample_rounds=8, train_refine_steps=2)
+        idx = self._e2e_idx()
+        B, H, Rr = TRAIN_BATCH, cfg.hypotheses, cfg.sample_rounds
+        p3p, score = solver_mod.p3p_from_4pts, loss_mod.soft_inlier_score
+
+        def run(coords, dev, dt):
+            rec = {}
+
+            def p3p_recording(X4, P4, cam):
+                R, t, err4, valid = p3p(X4, P4, cam)
+                rec.update(X4=X4.detach(), P4=P4, cam=cam.detach(), valid=valid,
+                           good=(valid & (err4 < cfg.inlier_threshold)).reshape(B, H, Rr).cpu())
+                R.register_hook(lambda g: rec.__setitem__("gR", g))
+                t.register_hook(lambda g: rec.__setitem__("gt", g))
+                X4.register_hook(lambda g: rec.__setitem__("gX4", g.detach().cpu().double()))
+                return R, t, err4, valid
+
+            def score_recording(*a, **k):
+                s = score(*a, **k)
+                s.register_hook(lambda g: rec.__setitem__("gs", g.detach().cpu().double()))
+                return s
+
+            solver_mod.p3p_from_4pts, loss_mod.soft_inlier_score = p3p_recording, score_recording
+            try:
+                c = coords.to(dev, dt).clone().requires_grad_()
+                loss, aux = ransac.expected_pose_loss(
+                    c, batch.poses.to(dev, dt), batch.focal.to(dev, dt), (IMG_H, IMG_W), cfg,
+                    pp_shift=batch.pp_shift.to(dev, dt), idx=idx.to(dev))
+                loss.backward()
+            finally:
+                solver_mod.p3p_from_4pts, loss_mod.soft_inlier_score = p3p, score
+            rec.update(loss=float(loss.detach()), grad=c.grad.detach().cpu().double(),
+                       first=torch.argmax(rec["good"].to(torch.uint8), dim=2),
+                       **{k: v.cpu() for k, v in aux.items() if k != "per_image"})
+            return rec
+
+        def p3p_part(r):
+            """The part of the coordinate gradient P3P's backward put into the
+            cells of the minimal sets, [B, N, 3]."""
+            out = torch.zeros(B, (IMG_H // 8) * (IMG_W // 8), 3, dtype=torch.float64)
+            return out.scatter_add_(1, idx.reshape(B, -1, 1).expand(-1, -1, 3),
+                                    r["gX4"].reshape(B, -1, 3))
+
+        def agree(a, b):
+            return (a["hyp_valid"] == b["hyp_valid"]).all(1) & (a["first"] == b["first"]).all(1)
+
+        out, failed = {}, []
+        for name, coords in self._e2e_inputs(batch.labels).items():
+            res = {r: run(coords, dev, dt) for r, dev, dt in (
+                ("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                ("card64", "cuda", torch.float64), ("cpu64", "cpu", torch.float64))}
+            g64 = res["card64"]["grad"].flatten(1)
+            n64 = g64.norm(dim=1).clamp(min=1e-30)
+            per = {r: ((res[r]["grad"].flatten(1) - g64).norm(dim=1) / n64).tolist()
+                   for r in ("card", "cpu", "cpu64")}
+            same64 = agree(res["card64"], res["cpu64"])
+            same = same64 & agree(res["card"], res["card64"]) & agree(res["cpu"], res["card64"])
+            d = {r: float((res[r]["grad"].flatten(1) - g64)[same].norm()) for r in ("card", "cpu")}
+            ref = float(g64[same].norm())
+            p3p_share = float(p3p_part(res["card64"]).flatten(1)[same].norm()) / ref
+            f64_worst = max((v for v, s in zip(per["cpu64"], same64.tolist()) if s), default=0.0)
+            gs = {r: res[r]["gs"].abs().amax(1).tolist() for r in ("card", "cpu", "card64")}
+            flips = {k: int((res["card"][k] != res["cpu"][k]).sum())
+                     for k in ("hyp_valid", "first", "inliers")}
+            share = float(res["card"]["hyp_valid"].float().mean())
+            wit = self._p3p_witness(res["card"], p3p_from_4pts)
+            log(f"e2e solver on the {name} input (label coordinates + 5 cm"
+                + (", right half turned 5 deg" if name == "two_mode" else "")
+                + f"), B={B}, tau {cfg.inlier_threshold:g} px: loss card "
+                f"{res['card']['loss']:.6f}, CPU {res['cpu']['loss']:.6f}, f64 card "
+                f"{res['card64']['loss']:.6f} / CPU {res['cpu64']['loss']:.6f}; valid hypotheses "
+                f"{share:.1%}; decisions that differ card vs CPU (f32): {flips}; images whose "
+                f"decisions agree in all runs {int(same.sum())} of {B}; over them |dL/dcoords - "
+                f"f64| / |f64| card {d['card'] / ref:.3e}, CPU f32 {d['cpu'] / ref:.3e}"
+                + (" (limit: card <= 1e-3 + 2 x CPU)" if name == "two_mode" else " (reported)")
+                + f", P3P's share of the f64 gradient {p3p_share:.3f}; f64 card vs CPU, worst "
+                f"image {f64_worst:.3e} (limit 1e-6, {int(same64.sum())} images); per image card "
+                + ", ".join(f"{v:.1e}" for v in per["card"]) + "; CPU "
+                + ", ".join(f"{v:.1e}" for v in per["cpu"]) + "; per image max |dL/dscore| card "
+                + ", ".join(f"{v:.1e}" for v in gs["card"]) + "; CPU "
+                + ", ".join(f"{v:.1e}" for v in gs["cpu"]) + "; f64 "
+                + ", ".join(f"{v:.1e}" for v in gs["card64"]))
+            log(f"  P3P at the card run's {wit['sets']} minimal sets and cotangents ({wit['valid']} "
+                f"valid in all runs), |gX - gX_f64 (CPU)|: card {wit['card']:.3e}, CPU f32 "
+                f"{wit['cpu']:.3e} of {wit['norm']:.3e} (limit: card <= 1e-3 x norm + 2 x CPU); "
+                f"the card run's own gX against the card's recomputation: {wit['recorded']:.3e}")
+            if int(same64.sum()) < B // 2 or f64_worst > 1e-6:
+                failed.append(f"{name}: float64 card vs CPU")
+            if wit["card"] > 1e-3 * wit["norm"] + 2 * wit["cpu"]:
+                failed.append(f"{name}: P3P at the e2e sets")
+            if name == "two_mode" and (int(same.sum()) < B // 2 or not share > 0.5
+                                       or d["card"] > 1e-3 * ref + 2 * d["cpu"]
+                                       or not p3p_share >= 0.1):
+                failed.append(f"{name}: f32 gradient on the card")
+            out[name] = dict(losses={r: v["loss"] for r, v in res.items()}, rel_err={
+                r: v / ref for r, v in d.items()}, per_image=per, flips=flips,
+                images_agreeing=int(same.sum()), valid_share=share, p3p_share=p3p_share,
+                f64_card_vs_cpu=f64_worst, max_dl_dscore=gs, p3p_witness=wit)
+        if failed:
+            raise AssertionError(f"the solver's gradient on the card is off: {failed}")
+        return out
+
+    @staticmethod
+    def _p3p_witness(rec, p3p_from_4pts):
+        """P3P's forward and implicit backward at the minimal sets of a
+        recorded card run, fed that run's cotangents (gR, gt), on the card
+        (f32), the CPU (f32) and the CPU (f64): distances of gX from the
+        CPU's f64 over the sets valid in all three, and of the run's recorded
+        gX from the card's recomputation."""
+        import torch
+
+        X4, P4, cam = (rec[k].double().cpu() for k in ("X4", "P4", "cam"))
+        gR, gt = rec["gR"].double().cpu(), rec["gt"].double().cpu()
+        res = {}
+        for r, dev, dt in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                           ("cpu64", "cpu", torch.float64)):
+            X = X4.to(dev, dt).requires_grad_()
+            R, t, _, valid = p3p_from_4pts(X, P4.to(dev, dt), cam.to(dev, dt))
+            torch.autograd.backward([R, t], [gR.to(dev, dt), gt.to(dev, dt)])
+            res[r] = (X.grad.detach().cpu().double(), valid.cpu())
+        both = res["card"][1] & res["cpu"][1] & res["cpu64"][1]
+        ref = res["cpu64"][0][both]
+        return dict(sets=int(both.numel()), valid=int(both.sum()), norm=float(ref.norm()),
+                    card=float((res["card"][0][both] - ref).norm()),
+                    cpu=float((res["cpu"][0][both] - ref).norm()),
+                    recorded=float((rec["gX4"].reshape(res["card"][0].shape)
+                                    - res["card"][0]).norm()))
+
+    def _e2e_p3p(self, datasets):
+        """P3P's forward and implicit backward on the card at the e2e step's
+        12 x 16 x 8 = 1,536 minimal sets, of the seeded net's coordinates and
+        of the scene's label coordinates, with a seeded cotangent, against
+        float64 on the CPU; the CPU's float32 is the yardstick: the card's
+        error may be at most twice it."""
+        import torch
+
+        batch = self._train_batch(datasets, TRAIN_BATCH, "cuda")
+        with torch.no_grad():
+            coords = self._model("cuda")(batch.images)[..., :3].float()
+        return {src: self._p3p_sets(src, c, batch) for src, c in (
+            ("net", coords), ("labels", batch.labels))}
+
+    def _p3p_sets(self, src, coords, batch):
+        import torch
+
+        from crossloc_tpu_torch import ransac
+        from crossloc_tpu_torch.geometry import p3p_from_4pts
+        from crossloc_tpu_torch.ransac.solver import solver_inputs
+
+        cfg = ransac.RansacConfig()
+        c, grid, cams = solver_inputs(coords, batch.focal.reshape(-1)[0], (IMG_H, IMG_W), cfg,
+                                      batch.pp_shift)
+        idx = self._e2e_idx().cuda()
+        X4 = c[torch.arange(TRAIN_BATCH, device="cuda")[:, None, None], idx].cpu().double()
+        P4, K = grid[idx].cpu().double(), cams[:, None].cpu().double()
+        gen = torch.Generator().manual_seed(3)
+        gR, gt = torch.randn(X4.shape[:2] + (3, 3), generator=gen, dtype=torch.float64), \
+            torch.randn(X4.shape[:2] + (3,), generator=gen, dtype=torch.float64)
+        res = {}
+        for run, dev, dt in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64)):
+            X = X4.to(dev, dt).requires_grad_()
+            R, t, _, valid = p3p_from_4pts(X, P4.to(dev, dt), K.to(dev, dt))
+            ((R * gR.to(dev, dt)).sum() + (t * gt.to(dev, dt)).sum()).backward()
+            res[run] = [v.detach().cpu().double() for v in (R, t, X.grad)] + [valid.cpu()]
+        both = res["card"][3] & res["cpu"][3] & res["cpu64"][3]
+
+        def err(run, i):
+            return float((res[run][i] - res["cpu64"][i])[both].norm())
+
+        ref = {i: float(res["cpu64"][i][both].norm()) for i in range(3)}
+        rows = {name: dict(card=err("card", i), cpu=err("cpu", i), norm=ref[i])
+                for i, name in enumerate(("R", "t", "grad_X"))}
+        valid_diff = int((res["card"][3] != res["cpu64"][3]).sum())
+        log(f"P3P on the card at {both.numel()} minimal sets ({src} coordinates; valid in "
+            f"all runs {int(both.sum())}, "
+            f"validity differs card vs f64 on {valid_diff}), |x - x_f64| over the valid sets: "
+            + ", ".join(f"{k} card {v['card']:.3e} / CPU f32 {v['cpu']:.3e} of {v['norm']:.3e}"
+                        for k, v in rows.items())
+            + " (limit: card <= 2 x CPU f32 + 1e-6 x norm)")
+        if any(v["card"] > 2 * v["cpu"] + 1e-6 * v["norm"] for v in rows.values()):
+            raise AssertionError("P3P on the card is further from float64 than the CPU's f32")
+        return dict(sets=both.numel(), valid=int(both.sum()), validity_differs=valid_diff,
+                    errors=rows)
+
+    def _e2e_cli(self, datasets, work, tag, extra):
+        """The training CLI with encoder_pretrain.sh's settings and
+        --e2e_pose_loss --e2e_warmup_epochs 1 --epochs 2 (epoch 0 the proxy
+        loss, epoch 1 the expected pose loss; 2 steps each), its -e2e folder,
+        log lines and launches, and model.net served on cuda."""
+        import re
+
+        import numpy as np
+
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+        from crossloc_tpu_torch.cli import train_single_task as train_cli
+
+        records = []
+        make = train_cli.make_dsac_train_step
+
+        def recording_maker(*a, **k):
+            step = make(*a, **k)
+
+            def recorded(*sa, **sk):
+                m = step(*sa, **sk)
+                records.append({k: float(v) for k, v in m.items()})
+                return m
+
+            return recorded
+
+        train_cli.make_dsac_train_step = recording_maker
+        try:
+            out_dir, losses, fwd, bwd, wall = self._run_cli(train_cli.main, work, PRETRAIN_ARGS + [
+                "--datasets_dir", datasets, "--ckpt_dir", os.path.join(work, "ckpts"),
+                "--session", f"e2e_{tag}", "--e2e_pose_loss", "--e2e_warmup_epochs", "1",
+                "--epochs", "2", *extra])
+        finally:
+            train_cli.make_dsac_train_step = make
+        steps = 4
+        text = open(os.path.join(out_dir, "output.log")).read()
+        valid = re.findall(r"Epoch:\s+1, Total loss: [-\w.]+, Valid: ([\d.]+)%", text)
+        log(f"train_single_task --e2e_pose_loss {' '.join(extra)} on cuda (B={TRAIN_BATCH}, "
+            f"{IMG_H}x{IMG_W}, 1 proxy + 1 e2e epoch): {os.path.basename(out_dir)}, {wall:.1f} s "
+            f"wall, losses {losses}, {fwd} K1 and {bwd} K1-bwd launches; per e2e step: valid "
+            "hypotheses " + ", ".join(f"{r['valid_share']:.1%}" for r in records)
+            + f", gradient entries zeroed {[int(r['nonfinite']) for r in records]}, steps with "
+            f"zeroed gradients {sum(r['nonfinite'] > 0 for r in records)}")
+        self.launches[f"e2e_cli_{tag}"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        if "-e2e-" not in os.path.basename(out_dir) or len(records) != 2:
+            raise AssertionError("no -e2e folder, or not 2 e2e steps")
+        if fwd != 28 * steps or bwd != 28 * steps:
+            raise AssertionError(f"expected {28 * steps} K1 and K1-bwd launches, got {fwd}/{bwd}")
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses) or valid != [
+                "100.0", "100.0"]:
+            raise AssertionError(f"log lines: losses {losses}, e2e valid {valid}")
+        logs = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                              "--network_in", os.path.join(out_dir, "model.net"), "--section",
+                              "val_drone_real", "--datasets_dir", datasets, "--save_pred",
+                              "--device", "cuda"])
+        pred_dir = os.path.join(out_dir, "coord_pred_model.net_val_drone_real")
+        poses = [np.load(os.path.join(pred_dir, f))["pose_pred"] for f in sorted(os.listdir(pred_dir))]
+        log(f"served the e2e model.net on cuda: {logs[0]}, {len(poses)} poses")
+        if len(poses) != BATCH or not all(np.isfinite(p).all() for p in poses):
+            raise AssertionError("the e2e net did not serve")
+        return dict(folder=os.path.basename(out_dir), losses=losses, k1=fwd, k1_bwd=bwd,
+                    wall_s=wall, e2e_steps=records)
+
+    def _e2e_step_setup(self, datasets, dtype):
+        """(state, step fn) of the CLI's e2e step at B=12: augmentation of
+        uint8 images, forward, expected pose loss (the CLI's solver config),
+        backward, Adam."""
+        import torch
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.train import (TrainBatch, TrainState, make_dsac_train_step,
+                                              make_optimizer)
+
+        B = TRAIN_BATCH
+        images, labels, poses, focal = (t.cuda() for t in self._host_batch(datasets, B))
+        wire = torch.from_numpy(data.images_to_wire(images.cpu().numpy())).cuda()
+        draws = data.draw_augmentation(torch.Generator().manual_seed(0), B).to("cuda")
+        model = self._model("cuda", dtype)
+        state = TrainState(model, make_optimizer(model.parameters(), 2e-4))
+        dsac = make_dsac_train_step(model)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def step():
+            im, lab, po, fo, pp = data.augment_batch(data.images_from_wire(wire), labels, poses,
+                                                     focal, draws)
+            return dsac(state, TrainBatch(im, po, lab, fo, pp), generator=gen)
+
+        return state, step
+
+    def _e2e_step_time(self, datasets):
+        """The e2e step between CUDA events at B=12, f32 (TF32 off) and bf16,
+        with peak memory and K1 / K1-bwd launches per step."""
+        import torch
+
+        from crossloc_tpu_torch import ops
+
+        out = {}
+        for dtype in self._dtypes():
+            state, step = self._e2e_step_setup(datasets, dtype)
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
+            ms = cuda_ms(step, iters=5, warmup=1)
+            per = (ops.group_norm_relu.launches / 6, ops.group_norm_relu_backward.launches / 6)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            name = str(dtype)[6:]
+            out[name] = dict(ms=ms, img_s=1e3 * TRAIN_BATCH / ms, peak_gib=peak, k1=per[0],
+                             k1_bwd=per[1])
+            log(f"e2e step B={TRAIN_BATCH} {IMG_H}x{IMG_W} {name} on {self.device_name} "
+                f"({nvidia_smi_line()}): {ms:.2f} ms = {1e3 * TRAIN_BATCH / ms:.1f} img/s, peak "
+                f"memory {peak:.2f} GiB, {per[0]:g} K1 and {per[1]:g} K1-bwd launches per step")
+            del state, step
+        return out
+
+    def _profile_e2e(self, datasets, dtype):
+        """One e2e step under torch.profiler (wall, device busy and idle, by
+        kernel group), then one step in stages (net forward, solver forward,
+        solver backward, net backward, Adam), each in a profiler session of
+        its own that ends with a sync: the kernels, device ms and wall of
+        each stage."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from crossloc_tpu_torch import data, ransac
+        from crossloc_tpu_torch.train import TrainBatch, apply_gradients
+
+        state, step = self._e2e_step_setup(datasets, dtype)
+        step(), step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, n, groups = self._kernel_groups(prof)
+        name = str(dtype)[6:]
+        log(f"profile e2e step {name} B={TRAIN_BATCH} {IMG_H}x{IMG_W}: wall {wall:.2f} ms, device "
+            f"busy {busy:.2f} ms ({busy / wall:.1%}), idle {1 - busy / wall:.1%}, {n} kernels; "
+            "by group: " + ", ".join(f"{k} {v[0]} launches {v[1]:.2f} ms"
+                                     for k, v in sorted(groups.items())))
+        with open(os.path.join(self.out_dir, f"profile_e2e_{name}.txt"), "w") as f:
+            f.write(f"{self.device_name} | {nvidia_smi_line()}\n")
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+
+        images, labels, poses, focal = (t.cuda() for t in self._host_batch(datasets, TRAIN_BATCH))
+        batch = TrainBatch(data.normalize_images(images), poses, labels, focal, None)
+        model = state.model
+        params = list(model.parameters())
+        state.optimizer.adam.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        cfg = ransac.RansacConfig(hypotheses=16, sample_rounds=8, train_refine_steps=2)
+        held = {}
+
+        def net_forward():
+            held["out"] = model(batch.images)[..., :3].float()
+            held["coords"] = held["out"].detach().requires_grad_()
+
+        def solver_forward():
+            held["loss"] = ransac.expected_pose_loss(held["coords"], batch.poses, batch.focal,
+                                                     (IMG_H, IMG_W), cfg, generator=gen)[0]
+
+        stages = {"net_forward": net_forward, "solver_forward": solver_forward,
+                  "solver_backward": lambda: held["loss"].backward(),
+                  "net_backward": lambda: held["out"].backward(held["coords"].grad),
+                  "adam": lambda: apply_gradients(state, params)}
+        by_stage = {}
+        for st, fn in stages.items():  # one profiler session per stage
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                st_wall = (time.perf_counter() - t0) * 1e3
+            st_busy, st_n, _ = self._kernel_groups(prof)
+            by_stage[st] = [st_n, st_busy, st_wall]
+        log(f"profile e2e step {name}, staged (a sync after each stage): " + ", ".join(
+            f"{k} {v[0]} kernels {v[1]:.2f} ms device / {v[2]:.2f} ms wall"
+            for k, v in by_stage.items()))
+        return dict(wall_ms=wall, busy_ms=busy, kernels=n, groups=groups, stages=by_stage)
+
     def _run_cli(self, main, work, args):
         """A training CLI's `main(args)` in process, in `work`, with the launch
         counts set to 0 just before it; (output dir, logged losses, K1 and
@@ -1215,11 +1812,15 @@ class Smoke:
         return m.to(memory_format=torch.channels_last) if device == "cuda" else m
 
     def _gradients_against_cpu(self, datasets, make_model=None, section="train_sim",
-                               yardstick=("cpu",), task="coord", unc="MLE"):
-        """One step at full width, 480x720, B=2, same weights and batch: the
-        card (K1, K1-bwd, TF32 off) against the CPU (plain twins) in float32,
-        and both against the CPU in float64 (the loss stays float32). Only
-        trainable parameters have a gradient; frozen ones must have none.
+                               yardstick=("cpu",), task="coord", unc="MLE", step=None,
+                               batch_size=2):
+        """One step at full width, 480x720, B=2 (`batch_size`), same weights
+        and batch: the card (K1, K1-bwd, TF32 off) against the CPU (plain
+        twins) in float32, and both against a float64 run with the card's
+        plain twins ("f64"). `step(state, batch)` is the update (default:
+        `train_step` of the task). Only trainable parameters have a
+        gradient; frozen ones must have none.
+        Returns ({run: loss}, {run: {name: gradient}}).
 
         Four card runs, all reported: "card", the path as it runs, which the
         limit holds; "card_native", cuDNN off (PyTorch's own CUDA
@@ -1228,7 +1829,7 @@ class Smoke:
         for every norm. They tell the kernels' rounding from the rest of the
         card's. The f32 rounding the limit allows is the largest distance
         from float64 of the plain f32 runs named in `yardstick` (the CPU's,
-        and for the finetune net also the card's plain twin's)."""
+        and for some nets also the card's plain twin's)."""
         import contextlib
 
         import torch
@@ -1242,7 +1843,7 @@ class Smoke:
             cudnn = torch.backends.cudnn.flags(enabled=run != "card_native", benchmark=False,
                                               deterministic=False, allow_tf32=False)
             saved = layers.group_norm_relu, gn.group_norm_relu_backward
-            if run == "card_plain":
+            if run in ("card_plain", "f64"):
                 layers.group_norm_relu = gn.group_norm_relu_plain
             if run == "card_plain_bwd":
                 gn.group_norm_relu_backward = (
@@ -1255,11 +1856,12 @@ class Smoke:
                 layers.group_norm_relu, gn.group_norm_relu_backward = saved
 
         make_model = make_model or self._model
+        step = step or (lambda state, b: train_step(state, b, task, unc))
         grads, losses = {}, {}
-        batch = self._train_batch(datasets, 2, "cpu", section=section, task=task)
+        batch = self._train_batch(datasets, batch_size, "cpu", section=section, task=task)
         cards = ("card", "card_native", "card_plain_bwd", "card_plain")
         for run, dev, dtype in ([(c, "cuda", torch.float32) for c in cards]
-                                + [("cpu", "cpu", torch.float32), ("cpu64", "cpu", torch.float64)]):
+                                + [("cpu", "cpu", torch.float32), ("f64", "cuda", torch.float64)]):
             model = make_model(dev)
             if dtype == torch.float64:
                 model.double().dtype = torch.float64
@@ -1268,7 +1870,7 @@ class Smoke:
             b = TrainBatch(*(t.to(dev, dtype) for t in batch))
             t = time.perf_counter()
             with variant(run):
-                m = train_step(state, b, task, unc)
+                m = step(state, b)
             losses[run] = float(m["loss"])
             named = dict(model.named_parameters())
             if any(p.grad is not None for p in named.values() if not p.requires_grad):
@@ -1284,16 +1886,17 @@ class Smoke:
             return {k: float((grads[a][k] - g).norm()) for k, g in grads[b].items()}
 
         norm = {k: float(g.norm()) for k, g in grads["cpu"].items()}
-        total = float(torch.sqrt(sum(g.square().sum() for g in grads["cpu64"].values())))
-        d_cpu64 = dist("cpu", "cpu64")
-        d_yard = [dist(y, "cpu64") for y in yardstick]
+        total = float(torch.sqrt(sum(g.square().sum() for g in grads["f64"].values())))
+        d_cpu64 = dist("cpu", "f64")
+        d_yard = [dist(y, "f64") for y in yardstick]
         ref = {k: max(d[k] for d in d_yard) for k in norm}
         failed = False
         for card in cards:
-            d_cc, d_c64 = dist(card, "cpu"), dist(card, "cpu64")
+            d_cc, d_c64 = dist(card, "cpu"), dist(card, "f64")
             rel = {k: d_cc[k] / max(norm[k], 1e-30) for k in norm}
             worst = sorted(rel, key=rel.get, reverse=True)[:4]
-            log(f"{task} gradients {card} vs CPU (f32) at B=2 {IMG_H}x{IMG_W}: |g_card - g_cpu| / "
+            log(f"{task} gradients {card} vs CPU (f32) at B={batch_size} {IMG_H}x{IMG_W}: "
+                f"|g_card - g_cpu| / "
                 f"|g_cpu| median {sorted(rel.values())[len(rel) // 2]:.3e} over {len(rel)} "
                 f"tensors, {sum(v > 1e-3 for v in rel.values())} above 1e-3; worst "
                 + ", ".join(f"{k} {rel[k]:.3e} (card vs f64 {d_c64[k] / norm[k]:.3e}, CPU f32 "
@@ -1316,6 +1919,7 @@ class Smoke:
             failed = failed or (card == "card" and bool(over["yardstick"] or d_loss > 1e-4))
         if failed:
             raise AssertionError(f"{task}: card gradients disagree with the CPU's")
+        return losses, grads
 
     def _fixed_batch_descends(self, datasets):
         import torch
@@ -1378,13 +1982,17 @@ class Smoke:
     # -- extra phase, not in the default run ---------------------------------
     def phase_profile(self):
         """Where the time of one image -> pose batch, one training step (coord
-        and semantics) and one finetune step goes, by kernel group
-        (torch.profiler), and the device's busy share of the wall time."""
+        and semantics), one finetune step and one e2e step goes, by kernel
+        group (torch.profiler), and the device's busy share of the wall time."""
         self._profile_serve()
         self._profile_step(self._model, TRAIN_BATCH, "train")
         self._profile_step(lambda dev, dtype: self._model(dev, dtype, "semantics", None),
                            TRAIN_BATCH, "semantics", task="semantics")
         self._profile_step(self._mlr_model, FT_BATCH, "finetune")
+        work, datasets = self._e2e_scene()
+        for dtype in self._dtypes():
+            self._profile_e2e(datasets, dtype)
+        shutil.rmtree(work, ignore_errors=True)
 
     @staticmethod
     def _kernel_groups(prof):
@@ -1504,7 +2112,7 @@ class Smoke:
         return json.dumps({"kernels": out})
 
 
-PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks")
+PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e")
 EXTRA_PHASES = ("profile",)
 
 

@@ -14,7 +14,7 @@ Flags, output-directory names and log lines are those of
 `--reuse_coord_encoder`, the first encoder tower, which keeps training with
 `--unfreeze_coord_encoder`; each other task's weight fills one frozen tower.
 A fresh run writes the wired weights to `model.net` before its first step;
-the loop, snapshots and resume are the training CLI's.
+the loop, snapshots, resume and `--e2e_pose_loss` are the training CLI's.
 """
 from __future__ import annotations
 

@@ -17,7 +17,11 @@ the card) and Adam. Semantics trains full size through the DUC head, its
 labels on the image canvas, sent to the card as uint8 class ids; with
 `--fullsize` the other tasks train against full-resolution labels. `--bf16`
 runs the convs and K1 in bfloat16; parameters, norm statistics, outputs and
-the loss stay float32.
+the loss stay float32. With `--e2e_pose_loss` (coord only) the epochs from
+`--e2e_warmup_epochs` on minimise the DSAC expected pose loss through the
+differentiable solver instead (`train/dsac_step.py`), with the same
+augmentation, its principal-point shift in the solver's camera, and solver
+draws from a generator keyed by (epoch, batch).
 
 Two departures from the JAX CLI, both fixes of its defects (ROADMAP queue
 3): a log-parse resume sets the LR schedule's clock to the resumed step
@@ -46,11 +50,17 @@ from ..data import (
     images_to_wire,
 )
 from ..losses import CoordLossConfig, DepthLossConfig, NormalLossConfig, get_nodata_value
-from ..train import CheckpointManager, TrainBatch, TrainState, make_optimizer, train_step
+from ..train import (
+    CheckpointManager,
+    TrainBatch,
+    TrainState,
+    make_dsac_train_step,
+    make_optimizer,
+    train_step,
+)
 from ..utils import config_log, read_training_log
 from . import common
 
-_E2E_TODO = "--e2e_pose_loss is ROADMAP queue 1, item 12 (DSAC e2e)"
 _PARALLEL_TODO = "--num_devices > 1, --zero and --ckpt_backend orbax are ROADMAP queue 1, item 13"
 
 
@@ -91,8 +101,11 @@ def config_parser(description="Initialize a scene coordinate regression network.
     parser.add_argument("--zero", action="store_true",
                         help="sharded parameters and Adam moments (not in the port yet)")
     parser.add_argument("--e2e_pose_loss", action="store_true",
-                        help="DSAC end-to-end pose loss (not in the port yet)")
-    parser.add_argument("--e2e_warmup_epochs", type=int, default=0)
+                        help="DSAC end-to-end training: minimise the expected pose loss "
+                             "through the differentiable RANSAC solver (coord task only)")
+    parser.add_argument("--e2e_warmup_epochs", type=int, default=0,
+                        help="epochs of the proxy reprojection loss before the expected "
+                             "pose loss takes over")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 convs and GroupNorm; params, norm statistics, outputs "
                              "and the loss stay float32; adds a '-bf16' naming token")
@@ -124,6 +137,9 @@ def normalize_opt(opt):
         raise ValueError(f"--real_data_domain {opt.real_data_domain} is not supported!")
     if opt.real_only and opt.sim_data_chunk != 0:
         raise ValueError("--real_only needs --sim_data_chunk 0")
+    if opt.e2e_pose_loss and opt.task != "coord":
+        raise ValueError("--e2e_pose_loss requires --task coord (pose is only "
+                         "defined for scene-coordinate regression)")
     return opt
 
 
@@ -136,8 +152,6 @@ def _reject_unported(opt) -> None:
         raise NotImplementedError("semantics has no uncertainty head: pass --uncertainty none")
     if opt.task == "semantics" and not opt.fullsize:
         raise NotImplementedError("semantics requires --fullsize (the DUC output)")
-    if opt.e2e_pose_loss:
-        raise NotImplementedError(_E2E_TODO)
     if opt.num_devices > 1 or opt.zero or opt.ckpt_backend == "orbax":
         raise NotImplementedError(_PARALLEL_TODO)
 
@@ -167,6 +181,13 @@ def augment_generator(epoch: int, batch_idx: int) -> torch.Generator:
     """CPU generator of one batch's augmentation draws, keyed by (epoch, batch)."""
     seed = int(np.random.SeedSequence([2021, epoch, batch_idx]).generate_state(1)[0])
     return torch.Generator().manual_seed(seed)
+
+
+def solver_generator(epoch: int, batch_idx: int, device: torch.device) -> torch.Generator:
+    """Generator on `device` of one e2e batch's solver draws (hypotheses),
+    keyed by (epoch, batch) apart from the augmentation's."""
+    seed = int(np.random.SeedSequence([2021, epoch, batch_idx, 1]).generate_state(1)[0])
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.device,
@@ -225,6 +246,15 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     depth_cfg = DepthLossConfig(min_depth=opt.mindepth, hard_clamp=opt.hardclamp,
                                 nodata_value=nodata_value)
     normal_cfg = NormalLossConfig(hard_clamp=opt.hardclamp, nodata_value=nodata_value)
+    dsac_step = None
+    if opt.e2e_pose_loss:
+        if opt.uncertainty is not None:
+            # the expected pose loss reads the coord channels alone
+            logging.warning(
+                "--e2e_pose_loss with --uncertainty %s: the uncertainty "
+                "channel gets NO gradient from the pose loss (only the "
+                "coord channels feed the solver)", opt.uncertainty)
+        dsac_step = make_dsac_train_step(model, subsample=subsample)
     manager = None
     if opt.ckpt_backend != "none":
         manager = CheckpointManager(output_dir, backend=opt.ckpt_backend)
@@ -259,6 +289,7 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     for epoch in range(start_epoch, opt.epochs):
         logging.info("=== Epoch: %d ======================================" % epoch)
         loader.set_epoch(epoch)
+        e2e = dsac_step is not None and epoch >= opt.e2e_warmup_epochs
         wire = (dict(b, image=images_to_wire(b["image"]), **labels_to_wire(b, opt.task))
                 for b in loader)
         for batch_idx, batch in enumerate(
@@ -270,11 +301,16 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
             images, labels, poses, focal, pp_shift = augment_batch(
                 images_from_wire(batch["image"]), batch[opt.task], batch["pose"], focal,
                 draws.to(device), aug_cfg, semantics=semantics)
-            metrics = train_step(state, TrainBatch(images, poses, labels, focal, pp_shift),
-                                 opt.task, opt.uncertainty, nodata_value, coord_cfg, depth_cfg,
-                                 normal_cfg)
+            tb = TrainBatch(images, poses, labels, focal, pp_shift)
+            if e2e:
+                metrics = dsac_step(state, tb,
+                                    generator=solver_generator(epoch, batch_idx, device))
+                valid_rate = 1.0  # no per-pixel validity here; the log line keeps its format
+            else:
+                metrics = train_step(state, tb, opt.task, opt.uncertainty, nodata_value,
+                                     coord_cfg, depth_cfg, normal_cfg)
+                valid_rate = float(metrics["valid_rate"])
             loss = float(metrics["loss"])
-            valid_rate = float(metrics["valid_rate"])
             time_avg = (time.time() - start_time) / B
             iteration += B
             logging.info(

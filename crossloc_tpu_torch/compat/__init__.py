@@ -1,4 +1,5 @@
-"""Checkpoint and naming compatibility with the reference and the JAX package."""
+"""Checkpoint and naming compatibility with the reference and the JAX package;
+the `dsacstar` plugin's API in `compat.dsacstar_shim`."""
 from .naming import finetune_output_name, read_meta_info, train_output_name
 from .weights import load_net, save_net, state_dict_from_flax, transpose_net_key_map
 

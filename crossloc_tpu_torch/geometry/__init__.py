@@ -1,7 +1,8 @@
-"""Camera, SE(3), small linear algebra and P3P on torch tensors."""
+"""Camera, SE(3), small linear algebra, Kabsch and P3P on torch tensors."""
 from .camera import intrinsics, pixel_grid
+from .kabsch import kabsch
 from .linalg import solve_spd
-from .p3p import bearings_from_pixels, p3p_from_4pts
+from .p3p import bearings_from_pixels, grad_firewall, p3p_from_4pts
 from .se3 import (
     hat,
     invert_se3,
@@ -13,10 +14,12 @@ from .se3 import (
 
 __all__ = [
     "bearings_from_pixels",
+    "grad_firewall",
     "hat",
     "intrinsics",
     "invert_se3",
     "inverse_rodrigues",
+    "kabsch",
     "p3p_from_4pts",
     "pixel_grid",
     "pose_vec_to_w2c",

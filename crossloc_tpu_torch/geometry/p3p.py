@@ -1,5 +1,5 @@
-"""Closed-form P3P (Lambda Twist), forward only (counterpart of
-`crossloc_tpu/geometry/p3p.py`).
+"""Closed-form P3P (Lambda Twist) with an implicit-function backward
+(counterpart of `crossloc_tpu/geometry/p3p.py`).
 
 Persson & Nordberg, "Lambda Twist: An Accurate Fast Robust P3P Solver"
 (ECCV 2018): depths from a cubic and a constrained eigen decomposition,
@@ -7,7 +7,8 @@ Gauss-Newton polish of the depth triplet, closed-form pose assembly. Every
 vector or matrix is a tuple of same-shape component tensors
 (structure-of-arrays) and the four candidates are unrolled in Python, so
 each step is one elementwise op over the whole batch of minimal sets.
-Invalid candidates are masked, never retried.
+Invalid candidates are masked, never retried. The pose of a minimal set is
+differentiated implicitly (`p3p_from_4pts`), not through the algebra.
 """
 from __future__ import annotations
 
@@ -15,7 +16,32 @@ import math
 
 import torch
 
+from .se3 import inverse_rodrigues, rodrigues
+
 _EPS = 1e-12
+
+
+def _sanitize(g):
+    """Non-finite entries -> 0, magnitudes clipped to 1e6."""
+    return torch.clamp(torch.where(torch.isfinite(g), g, 0.0), -1e6, 1e6)
+
+
+class _GradFirewall(torch.autograd.Function):
+    """Identity forward; the backward sanitizes the cotangent (`_sanitize`).
+    Degenerate minimal sets carry no useful gradient, and the reference's
+    hand-written backward zeroes unstable Jacobians the same way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sanitize(g)
+
+
+def grad_firewall(x):
+    return _GradFirewall.apply(x)
 
 
 def _safe_sqrt(x, eps=1e-12):
@@ -339,13 +365,8 @@ def bearings_from_pixels(pixels, cam_mat):
     return v / _safe_sqrt((v * v).sum(-1, keepdim=True))
 
 
-def p3p_from_4pts(X4, pix4, cam_mat):
-    """Pose from a 4-point minimal sample: P3P on points 0-2, point 3 selects.
-
-    X4 [..., 4, 3] world points, pix4 [..., 4, 2] pixels, cam_mat broadcastable
-    to [..., 3, 3]. Returns (R [..., 3, 3], t [..., 3], max_err4 [...], valid [...]):
-    the candidate with the smallest largest reprojection error of the 4 points.
-    """
+def _p3p_from_4pts_impl(X4, pix4, cam_mat):
+    """The forward of `p3p_from_4pts`."""
     fx = cam_mat[..., 0, 0]
     fy = cam_mat[..., 1, 1]
     cx = cam_mat[..., 0, 2]
@@ -385,3 +406,73 @@ def p3p_from_4pts(X4, pix4, cam_mat):
     R_best = torch.stack(best_R, dim=-1).reshape(best_R[0].shape + (3, 3))
     t_best = torch.stack(best_t, dim=-1)
     return R_best, t_best, best_err, any_valid
+
+
+def _implicit_grad_X3(X3, pix3, cam_mat, R, t, gR, gt):
+    """-B^T A^-T g_p6 over the batch: the cotangent of the first three world
+    points [..., 3, 3] for cotangents gR, gt of the pose, where F(p6, X) are
+    the six projection residuals of the three points, p6 = (rvec, t),
+    A = dF/dp6 [6, 6] and B = dF/dX [6, 9]. Rows of F: u0 u1 u2 v0 v1 v2."""
+    rvec = inverse_rodrigues(R)
+    Rr = rodrigues(rvec)
+    # dR/dr_k by forward mode, [..., 3(k), 3, 3]
+    basis = torch.eye(3, dtype=rvec.dtype, device=rvec.device)
+    dR = torch.stack([torch.func.jvp(rodrigues, (rvec,), (basis[k].expand_as(rvec),))[1]
+                      for k in range(3)], dim=-3)
+    Xc = X3 @ Rr.transpose(-1, -2) + t[..., None, :]  # [..., 3 points, 3]
+    fx, fy = cam_mat[..., 0, 0, None], cam_mat[..., 1, 1, None]
+    zpos = Xc[..., 2] > 1e-9
+    inv_z = 1.0 / torch.clamp(Xc[..., 2], min=1e-9)
+    zero = torch.zeros_like(inv_z)
+    # dF/dXc per point: rows (u, v), [..., 3 points, 2, 3]
+    ju = torch.stack([fx * inv_z, zero, torch.where(zpos, -fx * Xc[..., 0] * inv_z * inv_z, 0.0)],
+                     dim=-1)
+    jv = torch.stack([zero, fy * inv_z, torch.where(zpos, -fy * Xc[..., 1] * inv_z * inv_z, 0.0)],
+                     dim=-1)
+    J = torch.stack([ju, jv], dim=-2)
+    # dXc_i/dp6 = [dR/dr X_i | I], [..., 3 points, 3, 6]
+    dXc_dr = torch.einsum("...kab,...ib->...iak", dR, X3)
+    eye = torch.eye(3, dtype=X3.dtype, device=X3.device).expand(dXc_dr.shape)
+    A = (J @ torch.cat([dXc_dr, eye], dim=-1)).transpose(-3, -2).reshape(*X3.shape[:-2], 6, 6)
+    JR = (J @ Rr[..., None, :, :]).transpose(-3, -2)  # [..., 2, 3 points, 3]
+    g_p6 = torch.cat([torch.einsum("...ab,...kab->...k", gR, dR), gt], dim=-1)
+    y = torch.linalg.solve_ex(A.transpose(-1, -2), g_p6)[0].reshape(*X3.shape[:-2], 2, 3)
+    # B is block-diagonal in the points: gX_i = -(JR_i)^T y_i
+    return -torch.einsum("...cia,...ci->...ia", JR, y)
+
+
+class _P3PFrom4Pts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, X4, pix4, cam_mat):
+        R, t, err, valid = _p3p_from_4pts_impl(X4, pix4, cam_mat)
+        ctx.save_for_backward(X4, pix4, cam_mat, R, t, valid)
+        ctx.mark_non_differentiable(err, valid)
+        return R, t, err, valid
+
+    @staticmethod
+    def backward(ctx, gR, gt, _gerr, _gvalid):
+        X4, pix4, cam_mat, R, t, valid = ctx.saved_tensors
+        cam = cam_mat.expand(X4.shape[:-2] + (3, 3))
+        gX3 = _implicit_grad_X3(X4[..., :3, :], pix4[..., :3, :], cam, R, t, gR, gt)
+        gX3 = _sanitize(torch.where(valid[..., None, None], gX3, 0.0))
+        gX4 = torch.cat([gX3, torch.zeros_like(X4[..., 3:, :])], dim=-2)
+        return (gX4, torch.zeros_like(pix4) if ctx.needs_input_grad[1] else None,
+                torch.zeros_like(cam_mat) if ctx.needs_input_grad[2] else None)
+
+
+def p3p_from_4pts(X4, pix4, cam_mat):
+    """Pose from a 4-point minimal sample: P3P on points 0-2, point 3 selects.
+
+    X4 [..., 4, 3] world points, pix4 [..., 4, 2] pixels, cam_mat broadcastable
+    to [..., 3, 3]. Returns (R [..., 3, 3], t [..., 3], max_err4 [...], valid [...]):
+    the candidate with the smallest largest reprojection error of the 4 points.
+
+    The backward is the implicit function theorem's: (R, t) solves the three
+    points' projection system F(pose, X) = 0, so d pose / dX = -A^-1 B with
+    A = dF/dpose and B = dF/dX: one 6x6 solve per set (`solve_ex`, no error
+    check), exact for the selected root. It replaces the reference's
+    finite-difference Jacobian at the same boundary. Invalid sets get zero,
+    non-finite entries 0, magnitudes are clipped to 1e6; the 4th point,
+    `pix4` and `cam_mat` get zero (they feed threshold tests only).
+    """
+    return _P3PFrom4Pts.apply(X4, pix4, cam_mat)

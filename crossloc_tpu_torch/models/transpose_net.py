@@ -3,7 +3,7 @@
 `num_mlr` encoder towers merged by the MLR blocks (CrossLoc's finetuned
 decoder over mid-level representations).
 
-Output: [B, H/8, W/8, task + pos] in float32, or [B, H, W, task + pos] with
+Output: [B, H/8, W/8, task + pos] in float32 (float64 for a float64 net), or [B, H, W, task + pos] with
 `full_size_output` (the DUC head: 8x pixel shuffle, then a bilinear resize
 to the input's size); the last `num_pos_channel` channels pass through
 exp(clip(x, -16.10, 13.82)) into [1e-7, 1e6]. The
@@ -131,7 +131,8 @@ class TransPoseDecoder(nn.Module):
             sc = self.duc_upsample(sc)
             if up_hw is not None:
                 sc = bilinear_resize(sc, *up_hw)
-        sc = self.fc3(sc).float()
+        sc = self.fc3(sc)
+        sc = sc.to(torch.promote_types(sc.dtype, torch.float32))  # bf16 -> f32, f64 stays
         task = sc[..., : self.num_task_channel] + self.mean
         if self.num_pos_channel:
             pos = torch.exp(torch.clamp(sc[..., self.num_task_channel:], -16.10, 13.82))
@@ -149,7 +150,9 @@ class TransPoseNet(nn.Module):
     package's `stop_gradient` on their activations).
 
     `dtype` is the compute dtype of the convs and norms (float32 or
-    bfloat16); norm statistics, params and the output stay float32.
+    bfloat16); norm statistics, params and the output stay float32. A
+    float64 net (`net.double()`, `dtype` float64) computes and outputs
+    float64: the reference of the gradient checks.
     `full_size_output` adds the DUC head and a full-size output.
     `stem_s2d` is accepted for flag compatibility: it is an exact re-layout
     of stems 1+2 in the JAX package, and the port computes the standard

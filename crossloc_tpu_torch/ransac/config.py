@@ -1,4 +1,5 @@
-"""RANSAC solver configuration (counterpart of `crossloc_tpu/ransac/config.py`).
+"""RANSAC solver and pose-loss configuration (counterpart of
+`crossloc_tpu/ransac/config.py`).
 
 Defaults mirror the reference evaluation setup: 64 hypotheses, inlier
 tau = 10 px, alpha = 100, max pixel error = 100, subsample 8. The C++
@@ -22,7 +23,7 @@ class RansacConfig(NamedTuple):
     gn_iters: int = 3  # Gauss-Newton steps per refine iteration
     gn_damping: float = 1e-4  # Marquardt damping (scales diag(J^T J))
     polish_iters: int = 2  # unconditional final GN polish rounds
-    train_refine_steps: int = 4  # refinement inside the DSAC loss
+    train_refine_steps: int = 4  # refinement steps of each hypothesis in the DSAC loss
     # eval-time winner: "soft" = argmax of the softmax over soft inlier
     # scores; "hard" = argmax of the hard inlier count
     eval_selection: str = "soft"
@@ -32,3 +33,12 @@ class RansacConfig(NamedTuple):
     # refine the K best hypotheses and select after refinement; K=1 is the
     # reference semantics
     refine_top_k: int = 1
+
+
+class PoseLossConfig(NamedTuple):
+    """Pose loss weights (the reference plugin's defaults)."""
+
+    w_rot: float = 1.0  # per degree
+    w_trans: float = 1.0  # per meter
+    soft_clamp: float = 100.0  # sqrt clamp above this
+    max_loss: float = 1.0e7  # hard clamp

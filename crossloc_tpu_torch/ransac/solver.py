@@ -1,15 +1,18 @@
-"""Batched RANSAC PnP solver, eval mode (counterpart of
+"""Batched differentiable RANSAC PnP solver (counterpart of
 `crossloc_tpu/ransac/solver.py`).
 
 Sample 4-point minimal sets -> P3P -> soft inlier scores -> softmax ->
-argmax -> refinement, for a batch of scene-coordinate maps at once. The
-JAX package vmaps one image's solve over the batch and runs `fori_loop`s;
-here every tensor carries the batch (and hypothesis) axes explicitly and
-the loops are Python loops over batched tensors. Poses are scene poses:
-world-to-cam (rvec, tvec) 6-vectors.
+winner (argmax in eval, a draw in training) -> refinement, for a batch of
+scene-coordinate maps at once. The JAX package vmaps one image's solve over
+the batch and runs `fori_loop`s; here every tensor carries the batch (and
+hypothesis) axes explicitly and the loops are Python loops over batched
+tensors. Poses are scene poses: world-to-cam (rvec, tvec) 6-vectors.
+Gradients reach the scene coordinates through the scores, the refinement
+and P3P's implicit backward.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
@@ -25,6 +28,21 @@ from ..geometry import (
     solve_spd,
 )
 from .config import RansacConfig
+
+
+@contextlib.contextmanager
+def solver_precision(device: torch.device):
+    """Float32 means float32 inside the solver: autocast off and no TF32
+    matmuls, whatever the caller set (the JAX solver runs under
+    `default_matmul_precision("float32")`: reduced-precision products made
+    its geometry 2.2x worse). The TF32 flag is restored on exit."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device.type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class RansacResult(NamedTuple):
@@ -162,6 +180,37 @@ def sample_hypotheses(coords, grid, cam_mat, cfg: RansacConfig, idx=None,
     return torch.cat([inverse_rodrigues(R_sel), t_sel], dim=-1), hyp_valid
 
 
+def apply_pp_shift(cams, pp_shift):
+    """Offset the principal point of [B, 3, 3] camera matrices by pp_shift,
+    [2] (shared) or [B, 2]: the augmentation's zoom-in crop window moves it
+    (`data/augment.py`)."""
+    shift = torch.as_tensor(pp_shift, dtype=cams.dtype, device=cams.device).reshape(-1, 2)
+    offset = torch.zeros_like(cams)
+    offset[:, 0:2, 2] = shift.expand(cams.shape[0], 2)
+    return cams + offset
+
+
+def solver_inputs(scene_coords, focal_length, image_hw, cfg: RansacConfig, pp_shift=None):
+    """(coords [B, N, 3], grid [N, 2], cams [B, 3, 3]) of a batch of
+    scene-coordinate maps [B, Hs, Ws, 3]: principal point central, plus
+    `pp_shift` when given."""
+    B, Hs, Ws, _ = scene_coords.shape
+    dtype, device = scene_coords.dtype, scene_coords.device
+    grid = pixel_grid(Hs, Ws, cfg.subsample, dtype=dtype, device=device).reshape(Hs * Ws, 2)
+    img_h, img_w = image_hw
+    focal = torch.as_tensor(focal_length, dtype=dtype, device=device).expand(B)
+    cams = intrinsics(focal, img_w, img_h, dtype=dtype, device=device)
+    if pp_shift is not None:
+        cams = apply_pp_shift(cams, pp_shift)
+    return scene_coords.reshape(B, Hs * Ws, 3), grid, cams
+
+
+def selection_probs(scores, hyp_valid):
+    """Softmax over the valid hypotheses' scores; uniform when none is valid."""
+    masked = torch.where(hyp_valid, scores, -torch.inf)
+    return torch.softmax(torch.where(hyp_valid.any(-1, keepdim=True), masked, 0.0), dim=-1)
+
+
 def solve_batch(
     scene_coords,
     focal_length,
@@ -169,65 +218,68 @@ def solve_batch(
     cfg: RansacConfig = RansacConfig(),
     idx=None,
     generator: Optional[torch.Generator] = None,
+    training: bool = False,
+    pp_shift=None,
+    chosen=None,
 ) -> RansacResult:
     """Estimate camera poses for a batch of scene-coordinate maps.
 
     scene_coords [B, Hs, Ws, 3] (NHWC); focal_length scalar or [B];
-    image_hw (height, width) of the RGB frame, principal point central.
+    image_hw (height, width) of the RGB frame, principal point central plus
+    the optional `pp_shift` [2] or [B, 2] of the augmentation's crop.
     Hypothesis draws come from `idx` [B, H * sample_rounds, 4] when given,
-    else from `generator`. Eval mode: the winner is the argmax; the DSAC
-    training mode (sampled winner, gradients) is ROADMAP queue 1, item 12.
+    else from `generator`. Eval mode takes the argmax; `training=True` draws
+    the winner from the softmax (`chosen` [B] gives the draw, else
+    `generator` after the hypothesis draws). Gradients flow to scene_coords.
     """
-    B, Hs, Ws, _ = scene_coords.shape
-    N = Hs * Ws
-    dtype, device = scene_coords.dtype, scene_coords.device
-    grid = pixel_grid(Hs, Ws, cfg.subsample, dtype=dtype, device=device).reshape(N, 2)
-    img_h, img_w = image_hw
-    focal = torch.as_tensor(focal_length, dtype=dtype, device=device).expand(B)
-    cams = intrinsics(focal, img_w, img_h, dtype=dtype, device=device)
-    coords = scene_coords.reshape(B, N, 3)
+    B = scene_coords.shape[0]
+    device = scene_coords.device
     tau = cfg.inlier_threshold
     rows = torch.arange(B, device=device)
+    with solver_precision(device):
+        coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg, pp_shift)
+        pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
+        errs = _project_errors(pose6, coords, grid, cams, cfg.max_pixel_error)  # [B, H, N]
+        scores = soft_inlier_score(errs, cfg)
+        any_valid = hyp_valid.any(-1)
+        masked = torch.where(hyp_valid, scores, -torch.inf)
+        probs = selection_probs(scores, hyp_valid)
 
-    pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
-    errs = _project_errors(pose6, coords, grid, cams, cfg.max_pixel_error)  # [B, H, N]
-    scores = soft_inlier_score(errs, cfg)
-    any_valid = hyp_valid.any(-1)
-    masked = torch.where(hyp_valid, scores, -torch.inf)
-    # degenerate guard: no valid hypothesis -> uniform
-    probs = torch.softmax(torch.where(any_valid[:, None], masked, 0.0), dim=-1)
+        if training:
+            if chosen is None:
+                chosen = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            chosen = torch.as_tensor(chosen, device=device).long()
+        elif cfg.eval_selection == "hard":
+            hard = torch.where(hyp_valid, (errs < tau).sum(-1), -1)
+            chosen = torch.argmax(hard, dim=-1)
+        else:
+            chosen = torch.argmax(probs, dim=-1)
 
-    if cfg.eval_selection == "hard":
-        hard = torch.where(hyp_valid, (errs < tau).sum(-1), -1)
-        chosen = torch.argmax(hard, dim=-1)
-    else:
-        chosen = torch.argmax(probs, dim=-1)
+        if not training and cfg.refine_top_k > 1:
+            k = min(cfg.refine_top_k, pose6.shape[1])
+            sel = masked if cfg.eval_selection != "hard" else hard
+            top_idx = torch.topk(sel, k, dim=-1).indices  # [B, k]
+            cand = torch.gather(pose6, 1, top_idx[..., None].expand(B, k, 6))
+            refined = refine_pose(cand, coords, grid, cams, cfg)
+            final = soft_inlier_score(_project_errors(refined, coords, grid, cams,
+                                                      cfg.max_pixel_error), cfg)
+            best = torch.argmax(final, dim=-1)
+            win = refined[rows, best]
+            chosen = top_idx[rows, best]
+        else:
+            win = refine_pose(pose6[rows, chosen][:, None], coords, grid, cams, cfg)[:, 0]
 
-    if cfg.refine_top_k > 1:
-        k = min(cfg.refine_top_k, pose6.shape[1])
-        sel = masked if cfg.eval_selection != "hard" else hard
-        top_idx = torch.topk(sel, k, dim=-1).indices  # [B, k]
-        cand = torch.gather(pose6, 1, top_idx[..., None].expand(B, k, 6))
-        refined = refine_pose(cand, coords, grid, cams, cfg)
-        final = soft_inlier_score(_project_errors(refined, coords, grid, cams,
-                                                  cfg.max_pixel_error), cfg)
-        best = torch.argmax(final, dim=-1)
-        win = refined[rows, best]
-        chosen = top_idx[rows, best]
-    else:
-        win = refine_pose(pose6[rows, chosen][:, None], coords, grid, cams, cfg)[:, 0]
-
-    final_errs = _project_errors(win[:, None], coords, grid, cams, cfg.max_pixel_error)[:, 0]
-    inliers = (final_errs < tau).sum(-1)
-    plog = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)), 0.0)
-    entropy = -(probs * plog).sum(-1)
-    return RansacResult(
-        cam_to_world=invert_se3(pose_vec_to_w2c(win)),
-        pose_w2c6=win,
-        scores=scores,
-        probs=probs,
-        chosen=chosen,
-        inlier_count=inliers,
-        valid=any_valid,
-        entropy=entropy,
-    )
+        final_errs = _project_errors(win[:, None], coords, grid, cams, cfg.max_pixel_error)[:, 0]
+        inliers = (final_errs < tau).sum(-1)
+        plog = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)), 0.0)
+        entropy = -(probs * plog).sum(-1)
+        return RansacResult(
+            cam_to_world=invert_se3(pose_vec_to_w2c(win)),
+            pose_w2c6=win,
+            scores=scores,
+            probs=probs,
+            chosen=chosen,
+            inlier_count=inliers,
+            valid=any_valid,
+            entropy=entropy,
+        )

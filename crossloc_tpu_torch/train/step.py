@@ -114,19 +114,11 @@ def _global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(t.float().square().sum() for t in tensors))
 
 
-def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Optional[str],
-               nodata_value: float = -1.0, coord_cfg: Optional[CoordLossConfig] = None,
-               depth_cfg: Optional[DepthLossConfig] = None,
-               normal_cfg: Optional[NormalLossConfig] = None) -> dict:
-    """One update in place; returns {"loss", "valid_rate", "grad_norm"} as
-    0-d tensors on the device (reading them waits for the step)."""
-    model, opt = state.model, state.optimizer
-    params = [p for p in model.parameters() if p.requires_grad]
-    opt.adam.zero_grad(set_to_none=True)
-    preds = model(batch.images)
-    loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
-                                    nodata_value, coord_cfg, depth_cfg, normal_cfg)
-    loss.backward()
+def apply_gradients(state: TrainState, params) -> torch.Tensor:
+    """The optimizer's update of `params` from their `.grad`, in place: the
+    optional global-norm clip, the step's LR, Adam; counts the update.
+    Returns the gradients' global norm (before the clip)."""
+    opt = state.optimizer
     grads = [p.grad for p in params if p.grad is not None]
     grad_norm = _global_norm(grads)
     if opt.grad_clip is not None:
@@ -138,4 +130,21 @@ def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Opt
         group["lr"] = opt.schedule(state.step)
     opt.adam.step()
     state.step += 1
-    return {"loss": loss.detach(), "valid_rate": valid_rate, "grad_norm": grad_norm.detach()}
+    return grad_norm.detach()
+
+
+def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Optional[str],
+               nodata_value: float = -1.0, coord_cfg: Optional[CoordLossConfig] = None,
+               depth_cfg: Optional[DepthLossConfig] = None,
+               normal_cfg: Optional[NormalLossConfig] = None) -> dict:
+    """One update in place; returns {"loss", "valid_rate", "grad_norm"} as
+    0-d tensors on the device (reading them waits for the step)."""
+    model = state.model
+    params = [p for p in model.parameters() if p.requires_grad]
+    state.optimizer.adam.zero_grad(set_to_none=True)
+    preds = model(batch.images)
+    loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
+                                    nodata_value, coord_cfg, depth_cfg, normal_cfg)
+    loss.backward()
+    grad_norm = apply_gradients(state, params)
+    return {"loss": loss.detach(), "valid_rate": valid_rate, "grad_norm": grad_norm}

@@ -393,3 +393,105 @@ def test_kernel_raises_on_what_it_does_not_take(card):
     x6, s6, b6 = _inputs((1, 4, 4), 6, torch.float32, card)
     with pytest.raises(ValueError):
         group_norm_relu(x6, s6, b6, 3)  # C % 4 != 0: no 16-byte vectors
+
+
+# -- DSAC e2e on the card: P3P's implicit backward, Kabsch, the step's launches
+
+def _minimal_sets(M=512, seed=0):
+    """M 4-point sets seen by random cameras at 30-300 m (world points,
+    pixels with 0.5 px noise, K), float64 numpy."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 360], [0, 500, 240], [0, 0, 1]])
+    X, pix = [], []
+    for _ in range(M):
+        rv = rng.normal(size=3) * 0.5
+        th = np.linalg.norm(rv)
+        k = rv / th
+        Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+        R = np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+        uv = rng.uniform([0, 0], [720, 480], size=(4, 2))
+        d = rng.uniform(30.0, 300.0, size=4)
+        cam = np.stack([(uv[:, 0] - 360) / 500 * d, (uv[:, 1] - 240) / 500 * d, d], -1)
+        X.append((cam - rng.normal(size=3) * 10) @ R)
+        pix.append(uv + rng.normal(size=(4, 2)) * 0.5)
+    return np.stack(X), np.stack(pix), K
+
+
+def _p3p_grad(X, pix, K, gR, gt, device, dtype):
+    from crossloc_tpu_torch.geometry import p3p_from_4pts
+
+    Xt = torch.tensor(X, dtype=dtype, device=device, requires_grad=True)
+    R, t, _, valid = p3p_from_4pts(Xt, torch.tensor(pix, dtype=dtype, device=device),
+                                   torch.tensor(K, dtype=dtype, device=device))
+    ((R * torch.tensor(gR, dtype=dtype, device=device)).sum()
+     + (t * torch.tensor(gt, dtype=dtype, device=device)).sum()).backward()
+    return R.detach().cpu().double(), Xt.grad.cpu().double(), valid.cpu()
+
+
+def test_p3p_backward_on_the_card_against_float64(card):
+    """The card's f32 forward and implicit backward no further from float64
+    than twice the CPU's f32, plus 1e-6 of the norm."""
+    X, pix, K = _minimal_sets()
+    rng = np.random.default_rng(1)
+    gR, gt = rng.normal(size=(len(X), 3, 3)), rng.normal(size=(len(X), 3))
+    R64, g64, v64 = _p3p_grad(X, pix, K, gR, gt, "cpu", torch.float64)
+    Rc, gc, vc = _p3p_grad(X, pix, K, gR, gt, "cpu", torch.float32)
+    Rk, gk, vk = _p3p_grad(X, pix, K, gR, gt, card, torch.float32)
+    both = v64 & vc & vk
+    assert both.float().mean() > 0.9
+    for card_v, cpu_v, ref in ((Rk, Rc, R64), (gk, gc, g64)):
+        e_k, e_c = float((card_v - ref)[both].norm()), float((cpu_v - ref)[both].norm())
+        assert e_k <= 2 * e_c + 1e-6 * float(ref[both].norm()), (e_k, e_c)
+    assert not gk[~vk].any() and torch.isfinite(gk).all()
+
+
+def test_kabsch_on_the_card_against_float64(card):
+    from crossloc_tpu_torch.geometry import kabsch
+
+    g = torch.Generator().manual_seed(2)
+    src = torch.randn(256, 9, 3, generator=g, dtype=torch.float64) * 5
+    R = torch.linalg.qr(torch.randn(256, 3, 3, generator=g, dtype=torch.float64))[0]
+    R = R * torch.linalg.det(R)[:, None, None]
+    dst = src @ R.transpose(-1, -2) + torch.randn(256, 1, 3, generator=g, dtype=torch.float64)
+    dst = dst + 0.05 * torch.randn(dst.shape, generator=g, dtype=torch.float64)
+    w = torch.rand(256, 9, generator=g, dtype=torch.float64)
+    gR = torch.randn(256, 3, 3, generator=g, dtype=torch.float64)
+    out = {}
+    for run, dev, dt in (("card", card, torch.float32), ("cpu", "cpu", torch.float32),
+                         ("f64", "cpu", torch.float64)):
+        s = src.to(dev, dt).requires_grad_()
+        Rk, tk = kabsch(s, dst.to(dev, dt), w.to(dev, dt))
+        ((Rk * gR.to(dev, dt)).sum() + tk.sum()).backward()
+        out[run] = [Rk.detach().cpu().double(), tk.detach().cpu().double(), s.grad.cpu().double()]
+    for i in range(3):
+        e_k = float((out["card"][i] - out["f64"][i]).norm())
+        e_c = float((out["cpu"][i] - out["f64"][i]).norm())
+        assert e_k <= 2 * e_c + 1e-6 * float(out["f64"][i].norm()), (i, e_k, e_c)
+
+
+def test_e2e_step_launches_each_norm_kernel_once_per_layer(card):
+    """One DSAC step of the tiny coord net on the card: one K1 and one
+    K1-bwd launch per GroupNorm layer, a finite loss and gradient norm."""
+    from crossloc_tpu_torch import models, ops, ransac
+    from crossloc_tpu_torch.models.layers import GroupNorm
+    from crossloc_tpu_torch.train import (TrainBatch, TrainState, make_dsac_train_step,
+                                          make_optimizer)
+
+    net = models.init_weights(models.build_network("coord", "MLE", tiny=True, mean=[0, 0, 30.0]),
+                              torch.Generator().manual_seed(0)).to(card)
+    layers = sum(isinstance(m, GroupNorm) for m in net.modules())
+    g = torch.Generator().manual_seed(1)
+    B, H, W = 2, 96, 144
+    batch = TrainBatch(torch.randn(B, H, W, 3, generator=g).to(card),
+                       torch.eye(4).repeat(B, 1, 1).to(card), torch.zeros(B, H // 8, W // 8, 3,
+                                                                           device=card),
+                       torch.tensor(120.0, device=card), None)
+    cfg = ransac.RansacConfig(hypotheses=8, sample_rounds=4, train_refine_steps=1,
+                              inlier_threshold=5000.0, max_pixel_error=10000.0)
+    state = TrainState(net, make_optimizer(net.parameters(), 2e-4))
+    ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
+    m = make_dsac_train_step(net, cfg)(state, batch,
+                                       generator=torch.Generator(device=card).manual_seed(3))
+    torch.cuda.synchronize()
+    assert ops.group_norm_relu.launches == ops.group_norm_relu_backward.launches == layers
+    assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))

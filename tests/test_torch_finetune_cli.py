@@ -204,7 +204,7 @@ def test_finetune_cli_matches_jax_trains_and_serves(ws, monkeypatch):
     (["--encoders", "depth", "normal", "coord"], dict(reuse=False, unfreeze=False), ValueError,
      "list coord first"),
     (["--task", "depth"], {}, ValueError, "takes --task coord"),
-    (["--e2e_pose_loss"], {}, NotImplementedError, "item 12"),
+    (["--e2e_pose_loss", "--task", "depth"], {}, ValueError, "requires --task coord"),
     (["--device", "cuda"], {}, RuntimeError, "CUDA was requested"),
 ], ids=["unfreeze_without_reuse", "coord_not_first", "task", "e2e", "cuda"])
 def test_refused_flags_write_nothing(ws, monkeypatch, extra, flags, err, match):

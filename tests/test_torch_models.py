@@ -100,6 +100,23 @@ def test_bf16_forward_matches_jax_placement(tiny_params):
     assert 0.0 < e_port <= 1.5 * e_jax + 1e-3, (e_port, e_jax)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_output_dtype(tiny_params, dtype):
+    """float32 out of a float32 or bfloat16 net; a float64 net (the gradient
+    checks' reference) computes and outputs float64, equal to the float32
+    net's output to f32 rounding."""
+    x = _images(HW_TINY, B=1)
+    net = _port_net(True, tiny_params, torch.float32 if dtype == torch.float64 else dtype)
+    if dtype == torch.float64:
+        net.double().dtype = torch.float64
+    with torch.no_grad():
+        y = net(torch.from_numpy(x).to(torch.float64 if dtype == torch.float64 else torch.float32))
+        y32 = _port_net(True, tiny_params)(torch.from_numpy(x))
+    assert y.dtype == (torch.float64 if dtype == torch.float64 else torch.float32)
+    if dtype == torch.float64:
+        np.testing.assert_allclose(y.numpy(), y32.double().numpy(), rtol=1e-4, atol=1e-4)
+
+
 def test_jax_saved_net_loads_strictly(tmp_path, full_params):
     jnet = _jax_net(False)
     path = str(tmp_path / "model.net")

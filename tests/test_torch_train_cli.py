@@ -216,12 +216,24 @@ def test_trained_net_loads_in_the_jax_package(ws, monkeypatch):
 @pytest.mark.parametrize("flag, item", [
     (["--task", "semantics", "--fullsize"], "no uncertainty head"),
     (["--task", "semantics", "--uncertainty", "none"], "requires --fullsize"),
-    (["--e2e_pose_loss"], "item 12"), (["--num_devices", "2"], "item 13"),
+    (["--num_devices", "2"], "item 13"),
     (["--zero"], "item 13"), (["--ckpt_backend", "orbax"], "item 13"),
 ])
 def test_unported_flags_raise(ws, monkeypatch, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         _run(cli.main, ws, _args(ws, "no", ["--device", "cpu", *flag]), monkeypatch)
+    assert not list(ws.glob("output/*-sno-*"))
+
+
+def test_e2e_pose_loss_needs_the_coord_task(ws, monkeypatch):
+    """--e2e_pose_loss --task depth: the JAX CLI's ValueError, word for word,
+    before anything is written."""
+    args = _args(ws, "no", ["--e2e_pose_loss", "--task", "depth"])
+    with pytest.raises(ValueError) as ref:
+        jcli.normalize_opt(jcli.config_parser().parse_args(args))
+    with pytest.raises(ValueError) as port:
+        _run(cli.main, ws, args + ["--device", "cpu"], monkeypatch)
+    assert str(port.value) == str(ref.value) and "--task coord" in str(ref.value)
     assert not list(ws.glob("output/*-sno-*"))
 
 
