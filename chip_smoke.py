@@ -11,9 +11,11 @@ Phases:
            of the main paths (f32 and bf16, ReLU on and off; K1 in the design
            its planner picks and in the three-pass design, and once with
            |mean|/std = 1000; the MLR merge norm at C=1536 and 2048; the DUC
-           conv's norm at C=64-384, 60x90, B=12 and B=8; K1's
+           conv's norm at C=64-384, 60x90, B=12 and B=8; ProjHead's four
+           norms, 30x45 to 8x12, C=512 and 2048, B=8; K1's
            backward at the training batch and at the finetune batch, with
-           C=1536 and 2048 and the DUC widths, in the design its planner picks and in the
+           C=1536 and 2048, the DUC widths and ProjHead's shapes, in the
+           design its planner picks and in the
            four-kernel design, and once with |mean|/std = 1000) and time
            them: device time from CUDA graphs with the L2 evicted between
            calls, and host-inclusive call time, the two designs of K1 and
@@ -24,7 +26,10 @@ Phases:
            and of the finetune path (67 K1, 33 K1-bwd);
   forward  full-width coord+MLE net at 480x720, B=8, seeded weights: kernel
            path against the same net through the plain norm, and 28 kernel
-           launches per forward;
+           launches per forward; a full-width ProjHead on that net's encoder
+           output, forward and backward (4 K1 and 4 K1-bwd launches) against
+           the plain norm; the full-width VanillaNetwork (grayscale, no norm,
+           no K1 launch) on the card against the CPU;
   serve    write a 480x720 scene, save a seeded `.net`, run the port's
            `test_single_task` in-process on cuda (the main path: results_*.txt,
            finite poses, kernel launches counted on that run), again with
@@ -59,7 +64,12 @@ Phases:
            each served) and the e2e step time;
   profile  (extra, not in the default run) kernel-time breakdown of one
            image -> pose batch, one coord and one semantics training step, one
-           finetune step and one e2e step with torch.profiler.
+           finetune step and one e2e step with torch.profiler;
+  converge (extra) the coord net's convergence run through the unchanged
+           encoder_pretrain.sh and validate_encoder_pretrain.sh
+           (crossloc_tpu_torch/tools/convergence.py: 480 plane frames at
+           480x720, B=12, --bf16, 100 epochs at 2e-3, then 50 more in two LR
+           arms), held to the JAX tool's bars.
 The gradient checks' float64 reference runs on the card with the plain twins.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
@@ -69,6 +79,7 @@ CUDA device is present, or if the port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import math
 import os
@@ -135,6 +146,11 @@ MLR_SHAPES = [(1536, 60, 90, False, 0), (2048, 60, 90, False, 0)]
 # normal 2 + 1, coord 3 + 1 with --fullsize; semantics 6 on its main path);
 # held at the semantics training batch and the eval batch, in no 28-call total
 DUC_SHAPES = [(C, 60, 90, True, 0) for C in (64, 128, 192, 256, 384)]
+# ProjHead's four norms on the encoder's 60x90x512 output at 480x720: three
+# stride-2 3x3 convs to 512, a 1x1 conv to out_length 2048 (64 channels a
+# group); one call each per forward
+PROJ_SHAPES = [(512, 30, 45, True, 1), (512, 15, 23, True, 1), (512, 8, 12, True, 1),
+               (2048, 8, 12, True, 1)]
 # (C, H, W, relu, K1 calls per forward, K1-bwd calls per step) of the
 # finetune path: three towers forward, the first backward too, the five MLR
 # norms and the decoder's eleven
@@ -300,6 +316,8 @@ class Smoke:
             r, w = self._forward_rows(flush, gen, B, DUC_SHAPES)
             duc_rows += r
             worst = max(worst, w)
+        proj_rows, w = self._forward_rows(flush, gen, BATCH, PROJ_SHAPES)
+        worst = max(worst, w)
         self._large_mean_check()
         keys = ("ms", "three_pass_ms", "plain_ms", "library_ms", "bound_ms")
         tot = {d: {k: sum(r["per_forward"] * r[k] for r in rows if r["dtype"] == d) for k in keys}
@@ -307,11 +325,14 @@ class Smoke:
         ft = _path_totals(rows, 4, keys)
         # the semantics net: the coord net's 28 layers and the DUC conv's (C=384)
         sem = {d: {k: tot[d][k] + _duc_row(duc_rows, BATCH, d)[k] for k in keys} for d in tot}
+        proj = {d: {k: sum(r[k] for r in proj_rows if r["dtype"] == d) for k in keys}
+                for d in tot}
         os.makedirs(self.out_dir, exist_ok=True)
         with open(os.path.join(self.out_dir, "k1_shapes.json"), "w") as f:
             json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
-                           rows=rows, duc_rows=duc_rows, per_forward=tot, per_finetune_forward=ft,
-                           per_semantics_forward=sem), f, indent=1)
+                           rows=rows, duc_rows=duc_rows, proj_rows=proj_rows, per_forward=tot,
+                           per_finetune_forward=ft, per_semantics_forward=sem,
+                           per_projhead_forward=proj), f, indent=1)
         for dname, t in tot.items():
             log(f"K1 over one {dname} forward's 28 calls (B={BATCH}, 480x720), device time: "
                 f"planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, plain "
@@ -327,6 +348,11 @@ class Smoke:
                 f"conv's at C=384), device time: planned {t['ms']:.4f} ms, three-pass "
                 f"{t['three_pass_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                 f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        for dname, t in proj.items():
+            log(f"K1 over one {dname} ProjHead forward's 4 calls (B={BATCH}, from 60x90x512), "
+                f"device time: planned {t['ms']:.4f} ms, three-pass {t['three_pass_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
         self.kernels["groupnorm"] = dict(
             name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
@@ -431,6 +457,8 @@ class Smoke:
             r, w = self._backward_rows(flush, B, [s[:4] for s in DUC_SHAPES], seed=seed)
             duc_rows += r
             worst = max(worst, w)
+        proj_rows, w = self._backward_rows(flush, BATCH, [s[:4] for s in PROJ_SHAPES], seed=5)
+        worst = max(worst, w)
         self._large_mean_backward_check()
         keys = ("ms", "four_kernel_ms", "plain_ms", "library_ms", "bound_ms")
         tot = {d: {k: sum(c * r[k] for r in rows for (C, H, W, relu, c) in GN_PATH_SHAPES
@@ -439,10 +467,13 @@ class Smoke:
         ft = _path_totals(ft_rows, 5, keys)
         sem = {d: {k: tot[d][k] + _duc_row(duc_rows, TRAIN_BATCH, d)[k] for k in keys}
                for d in tot}
+        proj = {d: {k: sum(r[k] for r in proj_rows if r["dtype"] == d) for k in keys}
+                for d in tot}
         with open(os.path.join(self.out_dir, "k1_backward_shapes.json"), "w") as f:
             json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
-                           rows=rows + ft_rows, duc_rows=duc_rows, per_step=tot,
-                           per_finetune_step=ft, per_semantics_step=sem), f, indent=1)
+                           rows=rows + ft_rows, duc_rows=duc_rows, proj_rows=proj_rows,
+                           per_step=tot, per_finetune_step=ft, per_semantics_step=sem,
+                           per_projhead_step=proj), f, indent=1)
         for dname, t in tot.items():
             log(f"K1-bwd over one {dname} training step's 28 calls (B={TRAIN_BATCH}, 480x720), "
                 f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
@@ -458,6 +489,11 @@ class Smoke:
                 f"the DUC conv's at C=384), device time: planned {t['ms']:.4f} ms, four-kernel "
                 f"{t['four_kernel_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
                 f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms")
+        for dname, t in proj.items():
+            log(f"K1-bwd over one {dname} ProjHead backward's 4 calls (B={BATCH}), device time: "
+                f"planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
         self.kernels["groupnorm_backward"] = dict(
             name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
@@ -718,6 +754,94 @@ class Smoke:
         if e_k > 1.25 * e_p + 1e-3:
             raise AssertionError("bf16 kernel path is less accurate than the plain bf16 net")
         model.dtype = torch.float32
+        with torch.no_grad():
+            feats = model.encoder(images)
+        del model
+        self._projhead(feats)
+        del feats
+        self._vanilla()
+
+    def _projhead(self, feats):
+        """Full-width ProjHead (out_length 2048) on the coord encoder's f32
+        output [B, 60, 90, 512], forward and backward of a seeded projection
+        of its features: 4 K1 and 4 K1-bwd launches, counted on that run,
+        against the same head through the plain norm and its autograd
+        (features within 1e-3 of their spread; each gradient within 1e-3 of
+        its norm + 1e-6 of the global norm)."""
+        import torch
+
+        from crossloc_tpu_torch import models, ops
+        from crossloc_tpu_torch.models import layers
+
+        head = models.init_weights(models.ProjHead(), torch.Generator().manual_seed(3)).cuda()
+        x = feats.detach().clone().requires_grad_()
+        w = torch.randn(feats.shape[0], 2048, device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(3))
+
+        def step():
+            head.zero_grad()
+            x.grad = None
+            out = head(x)
+            (out * w).sum().backward()
+            return out.detach(), [p.grad for p in head.parameters()] + [x.grad]
+
+        ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
+        out, grads = step()
+        torch.cuda.synchronize()
+        fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+        self.launches["projhead"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        ms = cuda_ms(step, iters=10, warmup=2)
+        layers.group_norm_relu = ops.group_norm_relu_plain  # reference run only
+        try:
+            ref, ref_grads = step()
+            plain_ms = cuda_ms(step, iters=5, warmup=1)
+        finally:
+            layers.group_norm_relu = ops.group_norm_relu
+        e_out = float((out - ref).abs().max() / ref.std())
+        total = float(torch.sqrt(sum(g.double().square().sum() for g in ref_grads)))
+        e_g = [float((g - r).norm()) / (float(r.norm()) + 1e-3 * total)
+               for g, r in zip(grads, ref_grads)]
+        log(f"ProjHead f32 B={feats.shape[0]} from {tuple(feats.shape[1:])} to "
+            f"{tuple(out.shape[1:])}: {fwd} K1 and {bwd} K1-bwd launches; max|kernel - plain| "
+            f"/ std = {e_out:.3e} (limit 1e-3); worst gradient |kernel - plain| / (|g| + 1e-3 "
+            f"|g_all|) = {max(e_g):.3e} (limit 1e-3, input gradient {e_g[-1]:.3e}); forward + "
+            f"backward {ms:.2f} ms with K1 and K1-bwd, {plain_ms:.2f} ms with the plain norm")
+        if (fwd, bwd) != (4, 4) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"ProjHead: expected 4 + 4 launches and finite features, got "
+                                 f"{fwd} + {bwd}")
+        if e_out > 1e-3 or max(e_g) > 1e-3:
+            raise AssertionError("ProjHead's kernel path disagrees with the plain norm")
+
+    def _vanilla(self):
+        """Full-width VanillaNetwork, grayscale 480x720, B=8, seeded weights:
+        the card's f32 forward (cuDNN, TF32 off) within 1e-3 of max|ref| of
+        the CPU's, and no K1 launch (the net has no norm)."""
+        import torch
+
+        from crossloc_tpu_torch import models, ops
+
+        if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 is on")
+        gen = torch.Generator().manual_seed(4)
+        net = models.init_weights(models.VanillaNetwork(mean_init=[1.0, -2.0, 3.0]), gen).eval()
+        x = torch.rand(BATCH, IMG_H, IMG_W, 1, generator=gen)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = net(x)
+        cpu_s = time.perf_counter() - t0
+        net.cuda().to(memory_format=torch.channels_last)
+        ops.group_norm_relu.launches = 0
+        with torch.no_grad():
+            y = net(x.cuda())
+            torch.cuda.synchronize()
+            n = ops.group_norm_relu.launches
+            ms = cuda_ms(lambda: net(x.cuda()), iters=5, warmup=1)
+        err = float((y.cpu() - ref).abs().max() / ref.abs().max())
+        log(f"VanillaNetwork f32 B={BATCH} {IMG_H}x{IMG_W}x1 -> {tuple(y.shape[1:])}: {n} K1 "
+            f"launches; max|card - CPU| / max|CPU| = {err:.3e} (limit 1e-3); {ms:.2f} ms a "
+            f"forward on the card (input copy included), {cpu_s:.1f} s on the CPU")
+        if n != 0 or tuple(y.shape) != (BATCH, IMG_H // 8, IMG_W // 8, 3) or err > 1e-3:
+            raise AssertionError("VanillaNetwork on the card disagrees with the CPU")
 
     # -- phase 4 -----------------------------------------------------------
     def phase_serve(self):
@@ -2101,6 +2225,29 @@ class Smoke:
                 f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
         model.dtype = torch.float32
 
+    # -- extra: the convergence run ------------------------------------------
+    def phase_converge(self):
+        """The coord net's convergence run through the unchanged harness
+        (`crossloc_tpu_torch/tools/convergence.py`: 480 plane frames, 100
+        epochs, then two 50-epoch arms); its logs and JSON lines go to
+        `<out-dir>/converge/`."""
+        from crossloc_tpu_torch.tools import convergence
+
+        ws = WORK_DIR + "_converge"
+        dst = os.path.join(self.out_dir, "converge")
+        os.makedirs(dst, exist_ok=True)
+        try:
+            results = convergence.main(["--workdir", ws])
+        except SystemExit as e:  # the driver's failures (a missed bar, a failed stage)
+            raise AssertionError(f"convergence run failed: {e}") from None
+        finally:
+            for f in glob.glob(os.path.join(ws, "*.log")) + glob.glob(os.path.join(ws, "*.json")):
+                shutil.copy(f, dst)
+            for f in glob.glob(os.path.join(ws, "*", "ckpts", "*", "results_*.txt")):
+                shutil.copy(f, os.path.join(dst, f.split(os.sep)[-4] + "_" + os.path.basename(f)))
+        with open(os.path.join(dst, "converge.json"), "w") as f:
+            json.dump(results, f, indent=1)
+
     def kernels_line(self) -> str:
         """The kernels JSON line: `launches` sums each main path's counted run
         (`launches_by_path` lists them); times are the 28-call totals, beside
@@ -2113,7 +2260,7 @@ class Smoke:
 
 
 PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e")
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "converge")
 
 
 def main(argv=None) -> int:

@@ -14,9 +14,6 @@ from .. import compat, models
 from ..data import CamLocDataset, Loader, get_label_mean
 from ..device import resolve_device
 
-_VANILLA_TODO = ("scenes outside urbanscape / naturescape need the vanilla net, "
-                 "ROADMAP queue 1, item 11 (vanilla net)")
-
 
 def select_device_from_env(device: Optional[str] = None) -> torch.device:
     """The device of `--device`; for CUDA, `CROSSLOC_DEVICE_ORDINAL` (the bash
@@ -35,12 +32,6 @@ def select_device_from_env(device: Optional[str] = None) -> torch.device:
                                f"{torch.cuda.device_count()} CUDA devices")
         logging.info("Selected device %s via CROSSLOC_DEVICE_ORDINAL", dev)
     return dev
-
-
-def require_family_scene(scene: str) -> None:
-    """Raise for scenes outside urbanscape / naturescape (the vanilla net)."""
-    if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
-        raise NotImplementedError(_VANILLA_TODO)
 
 
 def resolve_train_roots(scene: str, task: str, real_data_domain: str, real_data_chunk: float,
@@ -96,11 +87,14 @@ def build_train_loader(scene: str, task: str, grayscale: bool, real_data_domain:
 
 def build_network(scene: str, task: str, tiny: bool, grayscale: bool,
                   uncertainty: Optional[str], fullsize: bool, mean, num_mlr: int = 0,
-                  num_unfrozen_encoder: int = 0,
-                  dtype: torch.dtype = torch.float32) -> models.TransPoseNet:
+                  num_unfrozen_encoder: int = 0, dtype: torch.dtype = torch.float32):
     """TransPoseNet for the task with the scene's output mean; `num_mlr`
-    towers of which the first `num_unfrozen_encoder` train."""
-    require_family_scene(scene)
+    towers of which the first `num_unfrozen_encoder` train. Scenes outside
+    urbanscape / naturescape get the VanillaNetwork, as in the JAX package
+    (`crossloc_tpu/cli/common.py:166-168`)."""
+    if not ("urbanscape" in scene.lower() or "naturescape" in scene.lower()):
+        return models.VanillaNetwork(tiny=tiny, mean_init=list(np.asarray(mean, np.float32)),
+                                     in_ch=1 if grayscale else 3, dtype=dtype)
     return models.build_network(task, uncertainty=uncertainty, tiny=tiny, grayscale=grayscale,
                                 fullsize=fullsize, num_mlr=num_mlr,
                                 num_unfrozen_encoder=num_unfrozen_encoder,

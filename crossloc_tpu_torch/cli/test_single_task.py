@@ -11,7 +11,10 @@ Same flags, weight discovery, per-frame lines and `results_*.txt` format as
 `crossloc_tpu/cli/test_single_task.py`; adds `--device`. `--bf16` runs the
 convs and the GroupNorm kernel in bfloat16 (params, norm statistics, outputs
 and the solver stay float32). Eval images pass through the uint8 wire
-format, as the reference's uint8 image path does.
+format, as the reference's uint8 image path does. `--plot` writes each
+semantics batch's image | prediction | label grid beside the network
+(`sm_section_<section>_batch_<i>.png`; needs matplotlib) and does nothing
+for the other tasks, as the JAX CLI.
 """
 from __future__ import annotations
 
@@ -27,9 +30,7 @@ import torch
 from .. import compat, eval as evaluation, models, ransac
 from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
 from ..losses import get_nodata_value
-from .common import infer_num_encoders, require_family_scene, select_device_from_env
-
-_PLOT_TODO = "--plot (cli/visualize.py) is ROADMAP queue 1, item 11 (visualize)"
+from .common import build_network, infer_num_encoders, select_device_from_env
 _PARALLEL_TODO = "--num_devices > 1 is ROADMAP queue 1, item 13 (parallel)"
 
 
@@ -179,14 +180,11 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
     """Evaluate one weight file over all sections; returns the results path."""
     if int(getattr(opt, "num_devices", 1) or 1) > 1:
         raise NotImplementedError(_PARALLEL_TODO)
-    if task == "semantics" and getattr(opt, "plot", False):
-        raise NotImplementedError(_PLOT_TODO)
-    require_family_scene(scene)
     device = select_device_from_env(getattr(opt, "device", None))
     nodata_value = get_nodata_value(scene)
-    model = models.build_network(
-        task, uncertainty=uncertainty, tiny=tiny, grayscale=grayscale, fullsize=fullsize,
-        num_mlr=infer_num_encoders(network_path), mean=[0.0] * models.task_channels(task),
+    model = build_network(
+        scene, task, tiny, grayscale, uncertainty, fullsize,
+        np.zeros(models.task_channels(task), np.float32), num_mlr=infer_num_encoders(network_path),
         dtype=torch.bfloat16 if getattr(opt, "bf16", False) else torch.float32)
     compat.load_net(network_path, model)
     model.to(device).eval()
@@ -238,6 +236,8 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
             elif task == "semantics":
                 # the class map leaves the card, not the full-size logits
                 d["classes"] = torch.argmax(preds, dim=-1)
+                if opt.plot:
+                    d["images"] = images
             return d
 
         def consume(d):
@@ -259,6 +259,12 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
                 miou_ls.append(miou)
                 fwiou_ls.append(fwiou)
                 acc_ls.append(acc)
+                if opt.plot:
+                    from .visualize import semantic_plotter
+
+                    semantic_plotter(d["images"].float().cpu().numpy(), d["classes"].cpu().numpy(),
+                                     batch["semantics"], network_path, this_section,
+                                     len(acc_ls) - 1)
                 return
             preds = d["preds"].cpu()
             cam_to_world = d["res"].cam_to_world.cpu()

@@ -26,8 +26,8 @@ draws from a generator keyed by (epoch, batch).
 Two departures from the JAX CLI, both fixes of its defects (ROADMAP queue
 3): a log-parse resume sets the LR schedule's clock to the resumed step
 (R5: the JAX CLI restarts optax's count at 0), and with
-`--snapshot_every_epochs N` the resume epoch is floored to the last written
-snapshot (R3).
+`--snapshot_every_epochs N` an `--auto_resume` epoch is floored to the last
+written snapshot (R3).
 """
 from __future__ import annotations
 
@@ -145,9 +145,11 @@ def normalize_opt(opt):
 
 def _reject_unported(opt) -> None:
     """Refuse, before anything is written, what the port cannot run: flags of
-    open ROADMAP items, scenes of the vanilla net, and the net configurations
-    the JAX package's `build_network` refuses."""
-    common.require_family_scene(opt.scene)
+    open ROADMAP items, scenes of no known family (`get_nodata_value`, JAX's
+    exception and words; the JAX CLI raises them after it made the output
+    folder), and the net configurations the JAX package's `build_network`
+    refuses."""
+    get_nodata_value(opt.scene)
     if opt.task == "semantics" and opt.uncertainty is not None:
         raise NotImplementedError("semantics has no uncertainty head: pass --uncertainty none")
     if opt.task == "semantics" and not opt.fullsize:
@@ -263,8 +265,11 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     if opt.auto_resume or opt.epoch_plus:
         iteration, start_epoch = read_training_log(
             os.path.join(os.path.dirname(opt.network_in), "output.log"), len(trainset))
-        # R3: the weights loaded are those of the last written snapshot
-        start_epoch = start_epoch // snap_every * snap_every
+        # R3: the weights loaded are those of the last written snapshot. An
+        # --epoch_plus extension loads a finished run, whose last epoch wrote
+        # one: it resumes at the log's epoch, as the JAX CLI does (F2)
+        if not opt.epoch_plus:
+            start_epoch = start_epoch // snap_every * snap_every
         save_counter = (start_epoch + 1) * len(trainset)
         epoch_de_facto = start_epoch
         last_ckpt_iteration = (start_epoch // 5 * 5) * len(trainset)

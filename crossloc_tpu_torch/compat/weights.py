@@ -13,6 +13,8 @@ grammar (a copy of `crossloc_tpu/compat/torch_import.py:24-101`):
     mlr_encoder_{i}, mlr_norm, mlr_forward (a ResBlock), mlr_skip/ConvGN_0
                                     ->  the same names, mlr_skip.0 / .1
     decoder/duc/ConvGN_0 (full size) ->  decoder.duc_upsample.conv / .norm
+    VanillaNetwork conv1..fc3, mean ->  the same names (no norms)
+    ProjHead proj{i}/{conv,norm}    ->  proj{i}.conv / .norm
 """
 from __future__ import annotations
 
@@ -90,6 +92,39 @@ def transpose_net_key_map(model) -> List[Tuple[str, str, str]]:
                                       model.full_size_output)
 
 
+def vanilla_net_key_map(model) -> List[Tuple[str, str, str]]:
+    """The triplets of a VanillaNetwork: the reference `Network`'s keys
+    (`crossloc_tpu/compat/torch_import.py:104-116`)."""
+    names = (["conv1", "conv2", "conv3", "conv4"]
+             + [f"res{b}_conv{i}" for b in (1, 2, 3) for i in (1, 2, 3)]
+             + (["res2_skip"] if not model.tiny else [])
+             + ["fc1", "fc2", "fc3"])
+    entries = [("mean", "mean", "copy")]
+    for n in names:
+        entries += _conv_entries(n, n)
+    return entries
+
+
+def proj_head_key_map(model) -> List[Tuple[str, str, str]]:
+    """The triplets of a ProjHead (the JAX package's `proj{i}` ConvGNs)."""
+    del model
+    return [e for i in range(1, 5) for e in _convgn(f"proj{i}.conv", f"proj{i}.norm", f"proj{i}")]
+
+
+def _key_map_for(model) -> List[Tuple[str, str, str]]:
+    """The key map of the model's type (`torch_import.py:118-125`, and
+    ProjHead)."""
+    from ..models import ProjHead, TransPoseNet, VanillaNetwork
+
+    if isinstance(model, TransPoseNet):
+        return transpose_net_key_map(model)
+    if isinstance(model, VanillaNetwork):
+        return vanilla_net_key_map(model)
+    if isinstance(model, ProjHead):
+        return proj_head_key_map(model)
+    raise NotImplementedError(type(model))
+
+
 def _get_path(tree: dict, path: str):
     node = tree
     for part in path.split("/"):
@@ -101,7 +136,7 @@ def state_dict_from_flax(params_np: dict, model) -> "OrderedDict[str, torch.Tens
     """Flax params tree (numpy leaves) -> state dict for
     `model.load_state_dict(strict=True)`; conv kernels HWIO -> OIHW."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
-    for tkey, fpath, tf in transpose_net_key_map(model):
+    for tkey, fpath, tf in _key_map_for(model):
         arr = np.asarray(_get_path(params_np, fpath), dtype=np.float32)
         if tf == "conv":
             arr = np.transpose(arr, (3, 2, 0, 1))

@@ -1,4 +1,4 @@
-"""TransPose nets on NHWC tensors."""
+"""TransPose nets, the projection head and the vanilla net on NHWC tensors."""
 from .layers import (
     Conv,
     DenseUpsamplingConv,
@@ -11,6 +11,7 @@ from .layers import (
     pixel_shuffle,
 )
 from .transpose_net import (
+    ProjHead,
     TransPoseDecoder,
     TransPoseEncoder,
     TransPoseNet,
@@ -18,6 +19,7 @@ from .transpose_net import (
     init_weights,
     task_channels,
 )
+from .vanilla import VanillaNetwork
 
 __all__ = [
     "Conv",
@@ -25,10 +27,12 @@ __all__ = [
     "GroupNorm",
     "MLRConcatenator",
     "MLRSkip",
+    "ProjHead",
     "ResBlock",
     "TransPoseDecoder",
     "TransPoseEncoder",
     "TransPoseNet",
+    "VanillaNetwork",
     "bilinear_resize",
     "build_network",
     "conv_gn",

@@ -211,6 +211,45 @@ class TransPoseNet(nn.Module):
         return self.decoder(torch.relu(res + mlr), up_hw)
 
 
+class _ConvGN(nn.Module):
+    """Conv -> GroupNorm -> ReLU under the keys `conv` / `norm` (the JAX
+    package's `ConvGN` with relu=True)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int, num_groups: int):
+        super().__init__()
+        self.conv, self.norm = conv_norm_pair(in_ch, out_ch, kernel, stride, num_groups)
+
+    def forward(self, x):
+        return conv_gn(x, self.conv, self.norm, relu=True)
+
+
+class ProjHead(nn.Module):
+    """Strided projection head to a global-average-pooled feature vector
+    (`crossloc_tpu/models/transpose_net.py:233-253`; the reference defines it
+    and uses it nowhere): three stride-2 3x3 Conv->GN->ReLU to `wide`, one
+    1x1 Conv->GN->ReLU to `out_length`, the mean over H and W.
+    [B, h, w, in_ch] -> [B, out_length] float32 (float64 for a float64 head).
+    `in_ch` defaults to `wide`, the encoder's output; `dtype` is the compute
+    dtype of the convs and norms. Keys `proj{1..4}.conv` / `.norm`."""
+
+    def __init__(self, out_length: int = 2048, tiny: bool = False, num_groups: int = 32,
+                 in_ch: Optional[int] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        _, wide = _widths(tiny)
+        self.dtype = dtype
+        cin = wide if in_ch is None else in_ch
+        for i in range(1, 4):
+            self.add_module(f"proj{i}", _ConvGN(cin if i == 1 else wide, wide, 3, 2, num_groups))
+        self.proj4 = _ConvGN(wide, out_length, 1, 1, num_groups)
+
+    def forward(self, x):
+        x = x.to(self.dtype)
+        for i in range(1, 5):
+            x = getattr(self, f"proj{i}")(x)
+        out = x.mean(dim=(1, 2))
+        return out.to(torch.promote_types(out.dtype, torch.float32))
+
+
 def task_channels(task: str) -> int:
     """coord 3, normal 2, depth 1, semantics 6."""
     table = {"coord": 3, "normal": 2, "depth": 1, "semantics": 6}

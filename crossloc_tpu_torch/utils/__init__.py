@@ -1,4 +1,5 @@
-"""Logging, output directories and resume bookkeeping."""
+"""Logging, output directories, resume bookkeeping and section timers."""
+from .profiling import StopWatch, device_sync, timeit, trace
 from .io import (
     check_encoders,
     config_directory,
@@ -11,12 +12,16 @@ from .io import (
 )
 
 __all__ = [
+    "StopWatch",
     "check_encoders",
     "config_directory",
     "config_log",
+    "device_sync",
     "get_epoch_from_dirname",
     "get_unique_file_name",
     "read_training_log",
     "safe_printout",
     "search_epoch_extension_model",
+    "timeit",
+    "trace",
 ]

@@ -495,3 +495,50 @@ def test_e2e_step_launches_each_norm_kernel_once_per_layer(card):
     torch.cuda.synchronize()
     assert ops.group_norm_relu.launches == ops.group_norm_relu_backward.launches == layers
     assert np.isfinite(float(m["loss"])) and np.isfinite(float(m["grad_norm"]))
+
+
+# ProjHead's four norms on the encoder's 60x90x512 output at 480x720, B=8:
+# clusters of 1 (and 2 for the backward at 30x45), one TMA box of 96 rows at
+# 8x12, a ragged last box at 15x23, and 64 channels a group at C=2048
+PROJ_SHAPES = [(512, 30, 45), (512, 15, 23), (512, 8, 12), (2048, 8, 12)]
+
+
+@pytest.mark.parametrize("design", ["planned", "three_pass"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PROJ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_kernel_matches_plain_at_projhead_shapes(card, shape, dtype, design):
+    C, H, W = shape
+    dt = getattr(torch, dtype)
+    x, s, b = _inputs((8, H, W), C, dt, card, seed=H)
+    assert _plan(8, H, W, C, 32, dt).design == "cluster"
+    _check_against_plain(DESIGNS[design], x, s, b, 32)
+
+
+@pytest.mark.parametrize("design", ["planned", "four_kernel"])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PROJ_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_backward_matches_plain_at_projhead_shapes(card, shape, dtype, relu, design):
+    C, H, W = shape
+    dt = getattr(torch, dtype)
+    x, s, b = _inputs((8, H, W), C, dt, card, seed=H + 1)
+    assert _plan_backward(8, H, W, C, 32, dt).design == "cluster"
+    _backward_of(design, x, s, b, 32, relu, _off_kink_dy(x, s, b, 32, seed=H + 2))
+
+
+def test_vanilla_net_on_the_card_matches_the_cpu(card):
+    """The vanilla net (no norm) at full width: the card's f32 forward, TF32
+    off, within 1e-3 of max|ref| of the CPU's, and no K1 launch."""
+    from crossloc_tpu_torch import models, ops
+
+    gen = torch.Generator().manual_seed(4)
+    net = models.init_weights(models.VanillaNetwork(mean_init=[1.0, -2.0, 3.0]), gen).eval()
+    x = torch.rand(2, 96, 144, 1, generator=gen)
+    with torch.no_grad():
+        ref = net(x)
+        n0 = ops.group_norm_relu.launches
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=False):
+            y = net.to(card)(x.to(card)).cpu()
+    assert ops.group_norm_relu.launches == n0 and y.shape == (2, 12, 18, 3)
+    assert float((y - ref).abs().max()) <= 1e-3 * float(ref.abs().max())

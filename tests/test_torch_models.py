@@ -137,11 +137,11 @@ def test_jax_saved_net_loads_strictly(tmp_path, full_params):
 
 
 def test_unported_configs_raise():
-    """What the JAX package's `build_network` refuses, and the vanilla net of
-    scenes outside urbanscape / naturescape (item 11)."""
+    """What the JAX package's `build_network` refuses; scenes outside
+    urbanscape / naturescape get the vanilla net, as in the JAX package."""
     with pytest.raises(NotImplementedError, match="no uncertainty head"):
         models.build_network("semantics", "MLE", fullsize=True)
     with pytest.raises(NotImplementedError, match="requires fullsize"):
         models.build_network("semantics", None)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_common.build_network("cambridge", "coord", True, False, "MLE", False, [0.0] * 3)
+    net = cli_common.build_network("cambridge", "coord", True, False, "MLE", False, [0.0] * 3)
+    assert isinstance(net, models.VanillaNetwork)

@@ -29,7 +29,7 @@ from crossloc_tpu import eval as jeval
 from crossloc_tpu.cli import common as jcommon
 from crossloc_tpu.cli import test_single_task as jtest_cli
 from crossloc_tpu.cli import train_single_task as jtrain_cli
-from crossloc_tpu_torch import compat, data, eval as evaluation
+from crossloc_tpu_torch import compat, data, eval as evaluation, models
 from crossloc_tpu_torch.cli import common
 from crossloc_tpu_torch.cli import finetune_decoder_single_task as ft_cli
 from crossloc_tpu_torch.cli import test_single_task as test_cli
@@ -188,10 +188,24 @@ def net_file(tmp_path):
     return tmp_path / "model.net"
 
 
-def test_plot_still_raises(net_file):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        test_cli.main(["urbanscape", "--task", "semantics", "--fullsize", "--plot",
-                       "--network_in", str(net_file), "--device", "cpu"])
+def test_plot_writes_the_semantics_grid(ws):
+    """`--plot` with semantics: one image | prediction | label grid per batch
+    beside the network, under the JAX CLI's file names."""
+    net = models.init_weights(models.build_network("semantics", None, tiny=True, fullsize=True),
+                              torch.Generator().manual_seed(0))
+    names = {}
+    for side, main, extra in (("jax", jtest_cli.main, []),
+                              ("port", test_cli.main, ["--device", "cpu"])):
+        d = ws / f"plot_{side}"
+        d.mkdir()
+        compat.save_net(str(d / "model.net"), net)
+        main(["urbanscape", "--task", "semantics", "--uncertainty", "none", "--tiny",
+              "--fullsize", "--plot", "--network_in", str(d / "model.net"), "--section",
+              "val_sim", "--datasets_dir", str(ws / "datasets"), "--image_height", str(IMG_H),
+              "--batch_size", "2", *extra])
+        names[side] = sorted(p.name for p in d.glob("*.png"))
+    assert names["port"] == names["jax"] == ["sm_section_val_sim_batch_0.png",
+                                             "sm_section_val_sim_batch_1.png"]
 
 
 class _Stop(Exception):

@@ -10,6 +10,7 @@ port trains loads in the JAX package with the same forward.
 """
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -159,6 +160,20 @@ def test_sparse_snapshots_resume_from_the_last_written_one(ws, monkeypatch):
     assert "=== Epoch: 2 ======================================" in events
 
 
+def test_epoch_plus_with_sparse_snapshots_resumes_at_the_log_s_epoch(ws, monkeypatch):
+    """ROADMAP F2: an --epoch_plus extension of a finished run written with
+    --snapshot_every_epochs 2 resumes at the log's last epoch, as the JAX
+    CLI's log-parse resume does (the finished run's last epoch wrote its
+    model.net), not at the last multiple of 2 (epoch 2)."""
+    src = _fake_finished_epochs(ws, "f2", last_epoch=3, epochs=4)
+    (src / "FLAG_training_done.nodata").write_text("")
+    _run(cli.main, ws, _args(ws, "f2", ["--device", "cpu", "--epoch_plus", "--epochs", "5",
+                                        "--snapshot_every_epochs", "2"]), monkeypatch)
+    iters, events = _log_lines(ws / "output" / src.name.replace("-e4-", "-e5-"))
+    assert [e for _, e in iters] == [3, 3, 3, 4, 4]
+    assert "=== Epoch: 2 ======================================" not in events
+
+
 class _Interrupt(Exception):
     pass
 
@@ -238,10 +253,20 @@ def test_e2e_pose_loss_needs_the_coord_task(ws, monkeypatch):
 
 
 def test_vanilla_net_scene_raises(ws, monkeypatch):
-    """Scenes outside urbanscape / naturescape need the vanilla net (item 11)."""
-    args = _args(ws, "no", ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _run(cli.main, ws, ["cambridge"] + args[1:], monkeypatch)
+    """A scene outside urbanscape / naturescape has no nodata marker: both
+    CLIs raise the JAX package's `get_nodata_value` error. The JAX CLI has
+    made its output folder by then; the port refuses before it writes
+    anything."""
+    monkeypatch.setenv("CROSSLOC_COMPILATION_CACHE", "0")
+    args = ["cambridge"] + _args(ws, "vanilla")[1:]
+    with pytest.raises(NotImplementedError) as ref:
+        _run(jcli.main, ws, args, monkeypatch)
+    assert list(ws.glob("output/cambridge-*"))
+    for d in [*ws.glob("output/cambridge-*"), *ws.glob("ckpts/cambridge-*")]:
+        shutil.rmtree(d)
+    with pytest.raises(NotImplementedError) as port:
+        _run(cli.main, ws, args + ["--device", "cpu"], monkeypatch)
+    assert str(port.value) == str(ref.value) == "unknown scene family: cambridge"
     assert not list(ws.glob("output/cambridge-*"))
 
 
