@@ -62,6 +62,19 @@ Phases:
            the step's 1,536 minimal sets against float64, `train_single_task
            --e2e_pose_loss --e2e_warmup_epochs 1` on cuda (f32 and --bf16,
            each served) and the e2e step time;
+  parallel data parallelism on the one card, full-width coord + MLE net at
+           480x720, f32: (a) `train_single_task` as 2 ranks through
+           CROSSLOC_* (gloo over CUDA tensors: NCCL refuses two ranks on one
+           device), global B=12, 2 epochs of 24 identical frames, 28 + 28
+           launches per step on each rank, rank 1 writing nothing, its
+           model.net served; (b) one step's averaged gradient against one
+           process at B=12, within twice the spread of single-process
+           gradients; (c) the same with --zero, its update against DP's;
+           (d) --zero --ckpt_backend orbax for 1 epoch, --epoch_plus to 2,
+           against the uninterrupted run; (e) an NCCL group at world size 1;
+           (f) the hypothesis-sharded solver on 2 ranks against solve_batch;
+           (g) data-parallel eval over [cuda:0, cuda:0]; the step times
+           (two ranks on one card, not a scaling figure);
   profile  (extra, not in the default run) kernel-time breakdown of one
            image -> pose batch, one coord and one semantics training step, one
            finetune step and one e2e step with torch.profiler;
@@ -1777,6 +1790,319 @@ class Smoke:
             for k, v in by_stage.items()))
         return dict(wall_ms=wall, busy_ms=busy, kernels=n, groups=groups, stages=by_stage)
 
+    # -- phase 9 -----------------------------------------------------------
+    def phase_parallel(self):
+        """Data parallelism on the one card: two ranks share it (gloo over
+        CUDA tensors; NCCL refuses two ranks on one device), and NCCL runs at
+        world size 1. Full-width coord + MLE net at 480x720, f32, TF32 off.
+        (a) the training CLI as 2 processes through CROSSLOC_*, global B=12;
+        (b) one step's averaged gradient against one process at B=12; (c)
+        ZeRO: the CLI with --zero and (b) sharded; (d) --zero --ckpt_backend
+        orbax for 1 epoch, then --epoch_plus to 2; (e) an NCCL group; (f) the
+        hypothesis-sharded solver; (g) data-parallel eval over [cuda:0,
+        cuda:0]."""
+        import re
+
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from crossloc_tpu_torch import compat, data, ops, parallel, ransac
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+        from crossloc_tpu_torch.tools import parallel_check as pc
+        from crossloc_tpu_torch.utils import read_training_log
+
+        work = WORK_DIR + "_parallel"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        report_dir = os.path.join(self.out_dir, "parallel")
+        os.makedirs(report_dir, exist_ok=True)
+        n_frames, B = 2 * TRAIN_BATCH, TRAIN_BATCH
+        steps = 2 * (n_frames // B)  # 2 epochs
+        smi = nvidia_smi_line()
+        t0 = time.perf_counter()
+        # identical frames: a 2-rank run then equals one process at the global batch
+        train = os.path.join(datasets, "urbanscape", "train_sim")
+        data.write_fake_dataset(train, n=1, img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=0,
+                                scene="plane")
+        for sub in os.listdir(train):
+            files = sorted(os.listdir(os.path.join(train, sub)))
+            for i in range(1, n_frames):
+                ext = files[0].split("frame_00000")[1]
+                shutil.copyfile(os.path.join(train, sub, files[0]),
+                                os.path.join(train, sub, f"frame_{i:05d}{ext}"))
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "val_drone_real"), n=BATCH,
+                                img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=1, scene="plane")
+        log(f"wrote {n_frames} identical train_sim frames and a {BATCH}-frame val_drone_real "
+            f"plane scene at {IMG_H}x{IMG_W} in {time.perf_counter() - t0:.1f} s")
+
+        def cli_ranks(tag, epochs, extra, shared):
+            """The training CLI as ranks 0 and 1 through CROSSLOC_* (a file://
+            store), each under a 300 s timeout: (rank 0's output dir, its log,
+            per-rank launch counts)."""
+            cwds = [os.path.join(work, tag if shared else f"{tag}_rank{r}") for r in (0, 1)]
+            args = PRETRAIN_ARGS + ["--datasets_dir", datasets, "--ckpt_dir",
+                                    os.path.join(work, "ckpts"), "--session", "par",
+                                    "--epochs", str(epochs), "--image_height", str(IMG_H),
+                                    *extra]
+            procs = []
+            for r, cwd in enumerate(cwds):
+                os.makedirs(cwd, exist_ok=True)
+                env = dict(os.environ, PYTHONPATH=HERE,
+                           CROSSLOC_COORDINATOR="file://" + os.path.join(work, f"{tag}.store"),
+                           CROSSLOC_NUM_PROCESSES="2", CROSSLOC_PROCESS_ID=str(r))
+                logf = open(os.path.join(report_dir, f"{tag}_rank{r}.log"), "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, "-m", "crossloc_tpu_torch.tools.parallel_check",
+                     os.path.join(work, f"{tag}_counts{r}.json"),
+                     "crossloc_tpu_torch.cli.train_single_task", *args],
+                    cwd=cwd, env=env, stdout=logf, stderr=subprocess.STDOUT), logf))
+            try:
+                for r, (p, _) in enumerate(procs):
+                    rc = p.wait(timeout=300)
+                    if rc != 0:
+                        raise AssertionError(f"{tag}: rank {r} exited {rc} (see "
+                                             f"{report_dir}/{tag}_rank{r}.log)")
+            finally:
+                for p, logf in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                    logf.close()
+            counts = [json.load(open(os.path.join(work, f"{tag}_counts{r}.json")))
+                      for r in (0, 1)]
+            outs = glob.glob(os.path.join(cwds[0], "output", f"*-e{epochs}-*"))
+            text = open(os.path.join(outs[0], "output.log")).read()
+            return outs[0], text, counts
+
+        def step_ms(text):
+            """Rank 0's step times after the first (Avg Time is per global sample)."""
+            t = [float(v) * B * 1e3 for v in re.findall(r"Avg Time: ([\d.]+)s", text)]
+            return [round(v, 1) for v in t[1:]]
+
+        def backends(text):
+            return sorted(set(re.findall(r"Process group: backend (\w+)", text)))
+
+        # (a) data parallelism through the CLI
+        out_a, log_a, counts_a = cli_ranks("dp", 2, [], shared=False)
+        fwd_a = [c["groupnorm"] for c in counts_a]
+        bwd_a = [c["groupnorm_backward"] for c in counts_a]
+        self.launches["parallel"] = dict(groupnorm=sum(fwd_a), groupnorm_backward=sum(bwd_a))
+        losses_a = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", log_a)]
+        ms_a = step_ms(log_a)
+        log(f"(a) train_single_task as 2 ranks on one card (backend {backends(log_a)}), global "
+            f"B={B}, local {B // 2}, {steps} steps: losses {losses_a}, launches per rank "
+            f"K1 {fwd_a} / K1-bwd {bwd_a} (expected {28 * steps} each)")
+        line = f"(global batch {B}, local {B // 2})"
+        if any(n != 28 * steps for n in fwd_a + bwd_a):
+            raise AssertionError("launches per rank are not 28 + 28 per step")
+        if f"Multi-host data-parallel training: 2 processes x 1 local devices {line}" not in log_a:
+            raise AssertionError("the data-parallel log line is missing")
+        if read_training_log(os.path.join(out_a, "output.log"), n_frames) != (2 * n_frames, 1):
+            raise AssertionError("output.log does not count global samples")
+        if os.path.exists(os.path.join(work, "dp_rank1", "output")):
+            raise AssertionError("rank 1 wrote into its output tree")
+        if len(losses_a) != steps or not all(math.isfinite(v) for v in losses_a):
+            raise AssertionError(f"losses {losses_a}")
+        logs = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                              "--network_in", os.path.join(out_a, "model.net"), "--section",
+                              "val_drone_real", "--datasets_dir", datasets, "--save_pred",
+                              "--device", "cuda"])
+        pred_dir = os.path.join(out_a, "coord_pred_model.net_val_drone_real")
+        poses = [np.load(os.path.join(pred_dir, f))["pose_pred"] for f in sorted(os.listdir(pred_dir))]
+        if len(poses) != BATCH or not all(np.isfinite(p).all() for p in poses):
+            raise AssertionError("the data-parallel model.net serves no finite poses")
+        log(f"(a) rank 1 wrote nothing; model.net served on cuda: {len(poses)} finite poses "
+            f"({logs[0]})")
+
+        # (d) then (c): ZeRO with DCP checkpoints, 1 epoch, then --epoch_plus to 2
+        out_c, log_c, counts_c = cli_ranks("zero", 1, ["--zero", "--ckpt_backend", "orbax"],
+                                           shared=True)
+        ms_c = step_ms(log_c)
+        fwd_c = [c["groupnorm"] for c in counts_c]
+        if "with ZeRO parameter sharding" not in log_c or any(n != 28 * steps // 2 for n in fwd_c):
+            raise AssertionError(f"ZeRO run: log line or launches {fwd_c} off")
+        if sorted(d for d in os.listdir(out_c) if d.isdigit()) != [str(steps // 2)]:
+            raise AssertionError(f"no DCP step directory in {out_c}")
+        out_d, log_d, counts_d = cli_ranks("zero", 2, ["--zero", "--ckpt_backend", "orbax",
+                                                       "--epoch_plus"], shared=True)
+        tail = log_d.split("Restored full train state", 1)[-1]
+        if tail == log_d or "=== Epoch: 0 ===" in tail:
+            raise AssertionError("the --epoch_plus run did not restore the DCP state")
+        losses_d = [float(v) for v in re.findall(r"Total loss: ([-\w.]+),", tail)]
+        net_a = compat.load_net(os.path.join(out_a, "model.net"))
+        net_d = compat.load_net(os.path.join(out_d, "model_epoch_plus_resume.net"))
+        diffs = sorted(float((net_a[k].double() - net_d[k].double()).abs().max()) for k in net_a)
+        d_loss = max(abs(x - y) for x, y in zip(losses_d, losses_a[steps // 2:]))
+        log(f"(c) --zero: 2 ranks, launches per rank K1 {fwd_c}, backend {backends(log_c)}; "
+            f"(d) --ckpt_backend orbax saved {out_c}/{steps // 2}/, --epoch_plus restored and "
+            f"continued: losses {losses_d} against the uninterrupted DP run's "
+            f"{losses_a[steps // 2:]} (max |diff| {d_loss:.3f}, limit 0.01, the printed digit); "
+            f"model.net median |diff| {diffs[len(diffs) // 2]:.2e} (limit 1e-5), max "
+            f"{diffs[-1]:.2e} (limit {3 * steps * 2e-4:.1e}, 3 x steps x lr)")
+        if d_loss > 0.01 or diffs[len(diffs) // 2] > 1e-5 or diffs[-1] > 3 * steps * 2e-4:
+            raise AssertionError("the resumed ZeRO run left the uninterrupted trajectory")
+
+        # (b), (c) and (f) on two ranks of one process group, one spawn
+        batch = self._train_batch(datasets, B, "cpu")
+        spec = dict(state_dict=self._model("cpu").state_dict(),
+                    batch=dict(images=batch.images, poses=batch.poses, labels=batch.labels,
+                               focal=batch.focal, pp_shift=batch.pp_shift),
+                    kind="coord", uncertainty="MLE", mean=list(data.get_label_mean(
+                        "urbanscape", "coord")), tiny=False, zero=False, steps=3, lr=2e-4,
+                    device="cuda")
+        model = self._model("cuda")
+        compat.load_net(os.path.join(out_a, "model.net"), model)
+        val = data.CamLocDataset(os.path.join(datasets, "urbanscape", "val_drone_real"),
+                                 image_height=IMG_H).collate(range(BATCH))
+        with torch.no_grad():
+            coords = model.eval()(data.normalize_images(
+                torch.from_numpy(val["image"]).cuda()))[..., :3].float().cpu()
+        del model
+        cfg = ransac.RansacConfig()
+        idx = torch.randint(0, coords.shape[1] * coords.shape[2],
+                            (BATCH, cfg.hypotheses * cfg.sample_rounds, 4),
+                            generator=torch.Generator().manual_seed(5))
+        solver_spec = dict(coords=coords, focal=torch.from_numpy(val["focal"]),
+                           image_hw=(IMG_H, IMG_W), ransac={}, idx=idx, device="cuda")
+        outs = {k: os.path.join(work, f"{k}.pt") for k in ("dp", "zero", "solver")}
+        t0 = time.perf_counter()
+        pc.run_ranks(pc.checks, 2, ([(pc.step_check, (spec, outs["dp"])),
+                                     (pc.step_check, (dict(spec, zero=True), outs["zero"])),
+                                     (pc.solver_check, (solver_spec, outs["solver"]))],),
+                     device="cuda", timeout=300, threads=4)
+        log(f"(b, c, f) two ranks of one group: {time.perf_counter() - t0:.1f} s")
+        dp, zero, sharded = (torch.load(outs[k], weights_only=False)
+                             for k in ("dp", "zero", "solver"))
+        ref1, ref2 = pc.step_check(dict(spec, steps=0)), pc.step_check(dict(spec, steps=0))
+        halves = [pc.step_check(dict(spec, steps=0, batch={k: (v[s] if v.dim() and k in (
+            "images", "poses", "labels") else v) for k, v in spec["batch"].items()}))
+            for s in (slice(0, B // 2), slice(B // 2, B))]
+        split = {n: (halves[0]["grads"][n] + halves[1]["grads"][n]) / 2 for n in ref1["grads"]}
+
+        def dist_max(a, b):
+            return max(float((a[n].double() - b[n].double()).abs().max()) for n in a)
+
+        gmax = max(float(g.abs().max()) for g in ref1["grads"].values())
+        spread = max(dist_max(ref1["grads"], ref2["grads"]), dist_max(ref1["grads"], split))
+        tol = max(2 * spread, 1e-6 * gmax)
+        err_dp, err_zero = dist_max(dp["grads"], ref1["grads"]), dist_max(zero["grads"],
+                                                                           ref1["grads"])
+        upd = sorted(float((zero["params"][n].double() - dp["params"][n].double()).abs().max())
+                     for n in dp["params"])
+        log(f"(b) DP gradient at B={B} vs one process: max |diff| {err_dp:.3e}; (c) ZeRO "
+            f"{err_zero:.3e}; limit {tol:.3e} = 2 x the spread of single-process gradients "
+            f"({dist_max(ref1['grads'], ref2['grads']):.3e} between two runs, "
+            f"{dist_max(ref1['grads'], split):.3e} against the two halves), max |g| {gmax:.3e}; "
+            f"backend {dp['backend']}; launches per rank and step {dp['launches']} (DP) "
+            f"{zero['launches']} (ZeRO); ZeRO's parameters after {spec['steps']} steps against "
+            f"DP's: median |diff| {upd[len(upd) // 2]:.2e}, max {upd[-1]:.2e} (limit "
+            f"{2 * spec['lr'] * spec['steps']:.1e}: a near-zero gradient whose sign differs "
+            f"moves an Adam update by 2 x lr)")
+        if max(err_dp, err_zero) > tol or upd[-1] > 2 * spec["lr"] * spec["steps"]:
+            raise AssertionError("the data-parallel gradient or the ZeRO update is off")
+        if {tuple(n) for n in dp["launches"] + zero["launches"]} != {(28, 28)}:
+            raise AssertionError("launches per rank and step are not 28 + 28")
+
+        ref = ransac.solve_batch(coords.cuda(), solver_spec["focal"].cuda(), (IMG_H, IMG_W),
+                                 cfg, idx=idx.cuda())
+        same = int((sharded["chosen"] == ref.chosen.cpu()).sum())
+        d6 = float(((sharded["pose_w2c6"] - ref.pose_w2c6.cpu()).abs()
+                    / ref.pose_w2c6.cpu().abs().clamp(min=1.0)).max())
+        log(f"(f) sharded solver, 2 ranks x {cfg.hypotheses // 2} of {cfg.hypotheses} "
+            f"hypotheses on the served net's B={BATCH} coordinates: chosen equal "
+            f"{same}/{BATCH}, max relative |pose6 diff| {d6:.2e} (limit 1e-5)")
+        if same != BATCH or d6 > 1e-5:
+            raise AssertionError("the sharded solver disagrees with solve_batch")
+
+        # (e) NCCL at world size 1, through the port's initialize_distributed
+        parallel.initialize_distributed("file://" + os.path.join(work, "nccl.store"), 1, 0,
+                                        device="cuda")
+        try:
+            nccl = dist.get_backend()
+            t = torch.arange(4.0, device="cuda")
+            dist.all_reduce(t)
+            one = ransac.solve_batch_hypsharded(coords.cuda(), solver_spec["focal"].cuda(),
+                                                (IMG_H, IMG_W), cfg, idx=idx.cuda())
+        finally:
+            dist.destroy_process_group()
+        same1 = bool(torch.equal(one.pose_w2c6, ref.pose_w2c6))
+        log(f"(e) world-size-1 group: backend {nccl}, all_reduce {t.tolist()}, sharded solver "
+            f"equal to solve_batch: {same1}")
+        if nccl != "nccl" or t.tolist() != [0.0, 1.0, 2.0, 3.0] or not same1:
+            raise AssertionError("the NCCL group is off")
+
+        # (g) data-parallel eval over [cuda:0, cuda:0]: batches of 5 and 3, padded
+        # to 6 and 4. cuDNN's f32 convs round by batch size (the one-device
+        # eval at batch 8 and at 5 differ so too) and the seeded net's solves
+        # amplify it, so the card holds the two parts apart: the coordinates
+        # to f32 rounding, and the poses exactly against one solve per CLI
+        # batch of the data-parallel run's own coordinates with the draws the
+        # CLI makes (generator 2021, once per batch)
+        runs = {}
+        for tag, devices in (("one", None), ("two", ["cuda:0", "cuda:0"])):
+            d = os.path.join(work, f"eval_{tag}")
+            os.makedirs(d)
+            shutil.copy(os.path.join(out_a, "model.net"), d)
+            log_g = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                                   "--network_in", os.path.join(d, "model.net"), "--section",
+                                   "val_drone_real", "--datasets_dir", datasets, "--batch_size",
+                                   "5", "--save_pred", "--device", "cuda"], devices=devices)[0]
+            pred = os.path.join(d, "coord_pred_model.net_val_drone_real")
+            runs[tag] = dict(text=open(log_g).read().replace(d, ""), preds=[
+                np.load(os.path.join(pred, f)) for f in sorted(os.listdir(pred))])
+        c_one = np.stack([p["coord_pred"] for p in runs["one"]["preds"]])
+        c_two = np.stack([p["coord_pred"] for p in runs["two"]["preds"]])
+        d_coord = float(np.abs(c_one - c_two).max())
+        gen = torch.Generator(device="cuda").manual_seed(2021)
+        d_pose = 0.0
+        for lo, hi in ((0, 5), (5, BATCH)):
+            c = torch.from_numpy(c_two[lo:hi]).permute(0, 2, 3, 1).contiguous().cuda()
+            idx = torch.randint(0, c.shape[1] * c.shape[2],
+                                (hi - lo, cfg.hypotheses * cfg.sample_rounds, 4),
+                                generator=gen, device="cuda")
+            res = ransac.solve_batch(c, torch.from_numpy(val["focal"][lo:hi]).cuda(),
+                                     (IMG_H, IMG_W), cfg, idx=idx)
+            got = np.stack([p["pose_pred"] for p in runs["two"]["preds"][lo:hi]])
+            ref_p = res.cam_to_world.cpu().numpy()
+            d_pose = max(d_pose, float((np.abs(got - ref_p) / np.maximum(np.abs(ref_p), 1.0))
+                                       .max()))
+        same_lines = sum(a == b for a, b in zip(runs["one"]["text"].splitlines(),
+                                                runs["two"]["text"].splitlines()))
+        log(f"(g) data-parallel eval over [cuda:0, cuda:0], batches of 5 and 3: coordinates "
+            f"max |diff| {d_coord:.3e} m against one device (limit {1e-5 * np.abs(c_one).max():.3e}"
+            f" = 1e-5 of max |coord|); poses against one solve per batch of its coordinates and "
+            f"the CLI's draws: max relative |diff| {d_pose:.2e} (limit 1e-5); report lines equal "
+            f"to the one-device run's: {same_lines} of {len(runs['one']['text'].splitlines())}")
+        if d_coord > 1e-5 * np.abs(c_one).max() or d_pose > 1e-5:
+            raise AssertionError("data-parallel eval is off")
+
+        if torch.cuda.device_count() > 1:
+            x = torch.randn(2, 60, 90, 512, device="cuda:1")
+            s, b = torch.rand(512, device="cuda:1") + 0.5, torch.randn(512, device="cuda:1")
+            err = float((ops.group_norm_relu(x, s, b) - ops.group_norm_relu_plain(
+                x, s, b, 32)).abs().max())
+            log(f"K1 on cuda:1 against its plain version: max_abs_err {err:.2e}")
+            if err > 1e-4:
+                raise AssertionError("K1 on the second card is off")
+        else:
+            log("one card: K1 on a second device ordinal waits for a machine with two")
+
+        times = dict(dp_cli_step_ms=ms_a, zero_cli_step_ms=ms_c, dp_step_ms=dp["step_ms"],
+                     zero_step_ms=zero["step_ms"])
+        log(f"step times, two ranks on one card, not a scaling figure ({smi}): per global step "
+            f"of {B}, rank 0's wall from the step's start to its loss, steps 2-3: DP "
+            f"{dp['step_ms'][1]:.2f}, {dp['step_ms'][2]:.2f} ms, ZeRO {zero['step_ms'][1]:.2f}, "
+            f"{zero['step_ms'][2]:.2f} ms; through the CLI (rank 0's Avg Time x {B}, 1 ms "
+            f"granularity x {B}, the first step left out): DP {ms_a}, ZeRO {ms_c}")
+        with open(os.path.join(self.out_dir, "parallel.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=smi, note="two ranks on one card, not "
+                           "a scaling figure", batch=B, **times, grad_err_dp=err_dp,
+                           grad_err_zero=err_zero, grad_tol=tol, grad_spread=spread,
+                           grad_max=gmax, zero_update_max=upd[-1], solver_pose_rel=d6,
+                           launches_per_rank=dict(dp=fwd_a, bwd=bwd_a)), f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
     def _run_cli(self, main, work, args):
         """A training CLI's `main(args)` in process, in `work`, with the launch
         counts set to 0 just before it; (output dir, logged losses, K1 and
@@ -2259,7 +2585,7 @@ class Smoke:
         return json.dumps({"kernels": out})
 
 
-PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e")
+PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel")
 EXTRA_PHASES = ("profile", "converge")
 
 

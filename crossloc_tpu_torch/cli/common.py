@@ -10,7 +10,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import compat, models
+from .. import compat, models, parallel
 from ..data import CamLocDataset, Loader, get_label_mean
 from ..device import resolve_device
 
@@ -23,6 +23,8 @@ def select_device_from_env(device: Optional[str] = None) -> torch.device:
     as the JAX package does (`--bf16` is the reduced-precision mode)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if parallel.topology()[1] > 1:
+        return parallel.rank_device(device)  # a rank's card is its local rank's
     dev = resolve_device(device)
     ordinal = os.environ.get("CROSSLOC_DEVICE_ORDINAL")
     if dev.type == "cuda" and dev.index is None and ordinal is not None:
@@ -32,6 +34,61 @@ def select_device_from_env(device: Optional[str] = None) -> torch.device:
                                f"{torch.cuda.device_count()} CUDA devices")
         logging.info("Selected device %s via CROSSLOC_DEVICE_ORDINAL", dev)
     return dev
+
+
+def check_parallel(opt, in_job: bool) -> None:
+    """Refuse, before anything is written, the parallel flags a run cannot
+    honour, with the JAX CLI's words: --zero without a mesh, a rank count
+    that does not divide 32 under --zero, a global batch that does not
+    split over the ranks, and more --num_devices than the host has cards."""
+    world = parallel.topology()[1] if in_job else max(1, opt.num_devices)
+    if opt.zero and world == 1:
+        raise ValueError("--zero requires a device mesh: set --num_devices > 1 "
+                         "or run multi-host (CROSSLOC_COORDINATOR et al.)")
+    if in_job:
+        if opt.batch_size % world != 0:
+            raise ValueError(f"--batch_size {opt.batch_size} must be divisible by the "
+                             f"process count {world} (it is the global batch)")
+    elif world > 1:
+        if resolve_device(opt.device).type == "cuda" and torch.cuda.device_count() < world:
+            raise ValueError(f"requested {world} devices, found {torch.cuda.device_count()}")
+        if opt.batch_size % world != 0:
+            raise ValueError("batch_size must be divisible by num_devices")
+    if opt.zero:
+        parallel.param_spec([], world)
+
+
+def log_process_group(device: torch.device) -> None:
+    """In a multi-process run, log the backend and this rank's place, then
+    wait for every rank: each has resolved its output paths and resume
+    weights before rank 0 writes into the output tree."""
+    rank, world = parallel.topology()
+    if world > 1:
+        logging.info("Process group: backend %s, rank %d of %d on %s",
+                     torch.distributed.get_backend(), rank, world, device)
+        parallel.barrier()
+
+
+def _rank_entry(rank: int, target, argv, init_method: str, world: int) -> None:
+    torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    target(argv, (init_method, world, rank))
+
+
+def spawn_ranks(opt, target, argv) -> None:
+    """`--num_devices N`: run `target(argv, (init_method, N, rank))` in N
+    spawned processes on this host, one card each (or the CPU with
+    `--device cpu`), joined through a `file://` process group in a
+    temporary directory; returns when all have ended and raises when one
+    fails (the others are then stopped)."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    world = opt.num_devices
+    with tempfile.TemporaryDirectory(prefix="crossloc_pg_") as tmp:
+        init_method = "file://" + os.path.join(tmp, "store")
+        mp.start_processes(_rank_entry, args=(target, argv, init_method, world), nprocs=world,
+                           join=True, start_method="spawn")
 
 
 def resolve_train_roots(scene: str, task: str, real_data_domain: str, real_data_chunk: float,

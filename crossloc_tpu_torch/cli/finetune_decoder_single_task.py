@@ -14,7 +14,10 @@ Flags, output-directory names and log lines are those of
 `--reuse_coord_encoder`, the first encoder tower, which keeps training with
 `--unfreeze_coord_encoder`; each other task's weight fills one frozen tower.
 A fresh run writes the wired weights to `model.net` before its first step;
-the loop, snapshots, resume and `--e2e_pose_loss` are the training CLI's.
+the loop, snapshots, resume, `--e2e_pose_loss` and the parallel flags
+(`--num_devices`, `--zero`, `--ckpt_backend orbax`, the CROSSLOC_* launch)
+are the training CLI's. The frozen towers are identical on every rank and
+stay replicated under `--zero`; Adam holds nothing for them.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import os
 
 import torch
 
-from .. import compat, models
+from .. import compat, models, parallel
 from ..data import get_label_mean
 from ..utils import check_encoders, config_log
 from . import common
@@ -62,9 +65,17 @@ def get_output_path(opt) -> str:
 def main(argv=None) -> str:
     """Parse, check the encoder weights, set up the output directory and log,
     wire the MLR net and train it; returns the output directory."""
+    return _main(argv)
+
+
+def _main(argv=None, process_group=None) -> str:
+    """`main`; a rank of `--num_devices` gets its `process_group`
+    (init method, world size, rank)."""
     parser = _extend_parser(config_parser("Fine-tune a task decoder over frozen MLR encoders."))
     opt = normalize_opt(parser.parse_args(argv))
     _reject_unported(opt)
+    in_job = parallel.initialize_distributed(*(process_group or ()), device=opt.device)
+    common.check_parallel(opt, in_job)
     if opt.task != "coord":
         # the decoder starts from the coord weight's: its head fits no other task
         raise ValueError(f"--task {opt.task}: the MLR decoder finetune takes --task coord")
@@ -82,8 +93,13 @@ def main(argv=None) -> str:
         # the eval CLI builds the net from the folder name
         raise ValueError(f"the output folder {os.path.basename(output_path)} names {named} "
                          f"encoders but the net has {num_mlr}: list coord first in --encoders")
+    if not in_job and opt.num_devices > 1:
+        common.spawn_ranks(opt, _main, argv)
+        return output_path
     device = common.select_device_from_env(opt.device)
-    output_dir, ckpt_output_dir = config_log(opt, output_path)
+    is_main = parallel.topology()[0] == 0
+    output_dir, ckpt_output_dir = config_log(opt, output_path, file_logging=is_main)
+    common.log_process_group(device)
 
     model = common.build_network(
         opt.scene, opt.task, opt.tiny, opt.grayscale, opt.uncertainty, opt.fullsize,
@@ -95,9 +111,10 @@ def main(argv=None) -> str:
     if opt.network_in is None:
         models.init_weights(model, torch.Generator().manual_seed(2021))
         common.wire_mlr_weights(model, encoder_paths, opt.reuse_coord_encoder)
-        model_path = os.path.join(output_dir, "model.net")
-        compat.save_net(model_path, model)
-        logging.info("Saving the initialized MLR model weight to {:s}".format(model_path))
+        if is_main:
+            model_path = os.path.join(output_dir, "model.net")
+            compat.save_net(model_path, model)
+            logging.info("Saving the initialized MLR model weight to {:s}".format(model_path))
     run_training(opt, output_dir, ckpt_output_dir, device, model=model)
     return output_dir
 

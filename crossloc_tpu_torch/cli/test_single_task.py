@@ -15,14 +15,25 @@ format, as the reference's uint8 image path does. `--plot` writes each
 semantics batch's image | prediction | label grid beside the network
 (`sm_section_<section>_batch_<i>.png`; needs matplotlib) and does nothing
 for the other tasks, as the JAX CLI.
+
+`--num_devices N` evaluates data-parallel in this one process: the weights
+are copied to N cards (N times the CPU with `--device cpu`), each batch is
+padded to a multiple of N by repeating its last frame, split, run through
+the net and the solver on each device and sliced back to its real frames.
+The solver's draws are made once for the whole batch and then split, so
+the `results_*.txt` do not depend on N. `main(argv, devices=[...])` names
+the devices instead (tests and the card run use `[cpu, cpu]` and
+`[cuda:0, cuda:0]`).
 """
 from __future__ import annotations
 
 import argparse
+import copy
 import glob
 import json
 import os
-from typing import List, Optional, Union
+from types import SimpleNamespace
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -31,7 +42,6 @@ from .. import compat, eval as evaluation, models, ransac
 from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
 from ..losses import get_nodata_value
 from .common import build_network, infer_num_encoders, select_device_from_env
-_PARALLEL_TODO = "--num_devices > 1 is ROADMAP queue 1, item 13 (parallel)"
 
 
 def config_parser():
@@ -67,7 +77,8 @@ def config_parser():
                         help="bfloat16 convs and GroupNorm for the network forward "
                              "(params, norm statistics, outputs and the solver stay f32)")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="data-parallel evaluation (not in the port yet; must be 1)")
+                        help="data-parallel evaluation over N cards in this process "
+                             "(--device cpu: N times the CPU)")
     parser.add_argument("--ransac_cfg", type=str, default="{}",
                         help="RansacConfig field overrides as JSON, e.g. "
                              "'{\"refine_top_k\": 4, \"eval_selection\": \"hard\"}'")
@@ -175,22 +186,50 @@ def _ransac_config(opt, fullsize: bool) -> ransac.RansacConfig:
     return cfg._replace(**overrides)
 
 
-def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, tiny,
-                     fullsize, uncertainty) -> str:
-    """Evaluate one weight file over all sections; returns the results path."""
-    if int(getattr(opt, "num_devices", 1) or 1) > 1:
-        raise NotImplementedError(_PARALLEL_TODO)
+def eval_devices(opt, devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices of an evaluation: `devices` when given, else
+    `--num_devices` of `--device` (cards 0..N-1, or the CPU N times);
+    too few cards raise the JAX CLI's error."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
     device = select_device_from_env(getattr(opt, "device", None))
+    ndev = max(1, int(getattr(opt, "num_devices", 1) or 1))
+    if ndev == 1:
+        return [device]
+    if device.type == "cpu":
+        return [device] * ndev
+    found = torch.cuda.device_count()
+    if found < ndev:
+        raise ValueError(f"requested {ndev} devices, found {found}")
+    return [torch.device("cuda", i) for i in range(ndev)]
+
+
+def _pad_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """`t` with its last row repeated to `n` rows."""
+    return torch.cat([t, t[-1:].expand(n - t.shape[0], *t.shape[1:])]) if n > t.shape[0] else t
+
+
+def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, tiny,
+                     fullsize, uncertainty, devices: Optional[Sequence] = None) -> str:
+    """Evaluate one weight file over all sections; returns the results path.
+    `devices` as in `eval_devices`."""
+    devices = eval_devices(opt, devices)
+    device = devices[0]
     nodata_value = get_nodata_value(scene)
     model = build_network(
         scene, task, tiny, grayscale, uncertainty, fullsize,
         np.zeros(models.task_channels(task), np.float32), num_mlr=infer_num_encoders(network_path),
         dtype=torch.bfloat16 if getattr(opt, "bf16", False) else torch.float32)
     compat.load_net(network_path, model)
-    model.to(device).eval()
-    if device.type == "cuda":
-        model.to(memory_format=torch.channels_last)
+    replicas = []
+    for dev in devices:
+        m = copy.deepcopy(model).to(dev).eval()
+        if dev.type == "cuda":
+            m.to(memory_format=torch.channels_last)
+        replicas.append(m)
     print("Successfully loaded %s." % network_path)
+    if len(devices) > 1:
+        print("Data-parallel evaluation over %d devices" % len(devices))
 
     cfg = _ransac_config(opt, fullsize)
     ntc = model.num_task_channel
@@ -220,19 +259,45 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
         gen = torch.Generator(device=device).manual_seed(2021)
 
         @torch.no_grad()
+        def forward_split(wire):
+            """(images, preds) of the batch, each device's share run on it and
+            the results gathered on the first device, sliced to the real frames."""
+            n_real, nd = wire.shape[0], len(devices)
+            chunks = _pad_rows(wire, -(-n_real // nd) * nd).chunk(nd)
+            images, preds = [], []
+            for dev, m, chunk in zip(devices, replicas, chunks):
+                x = images_from_wire(chunk.to(dev, non_blocking=True))
+                if grayscale:
+                    x = to_grayscale(x)
+                images.append(x)
+                preds.append(m(x))
+            return images, preds
+
+        @torch.no_grad()
         def dispatch(batch):
             """Enqueue the device work of one batch (CUDA runs it async)."""
             wire = torch.from_numpy(images_to_wire(batch["image"]))
-            images = images_from_wire(wire.to(device, non_blocking=True))
-            if grayscale:
-                images = to_grayscale(images)
-            preds = model(images)
+            n_real = wire.shape[0]
+            image_parts, pred_parts = forward_split(wire)
+            images = torch.cat([x.to(device) for x in image_parts])[:n_real]
+            preds = torch.cat([p.to(device) for p in pred_parts])[:n_real]
             d = dict(batch=batch, preds=preds)
             if task == "coord":
-                d["res"] = ransac.solve_batch(preds[..., :ntc],
-                                              torch.from_numpy(batch["focal"]).to(device),
-                                              (images.shape[1], images.shape[2]), cfg,
-                                              generator=gen)
+                hs, ws = preds.shape[1], preds.shape[2]
+                # the whole batch's draws, as the solver makes them on one device
+                idx = torch.randint(0, hs * ws, (n_real, cfg.hypotheses * cfg.sample_rounds, 4),
+                                    generator=gen, device=device)
+                focal = torch.from_numpy(batch["focal"])
+                rows = pred_parts[0].shape[0]
+                poses = []
+                for i, (dev, part) in enumerate(zip(devices, pred_parts)):
+                    sl = slice(i * rows, (i + 1) * rows)
+                    res = ransac.solve_batch(part[..., :ntc],
+                                             _pad_rows(focal, rows * len(devices))[sl].to(dev),
+                                             (images.shape[1], images.shape[2]), cfg,
+                                             idx=_pad_rows(idx, rows * len(devices))[sl].to(dev))
+                    poses.append(res.cam_to_world.to(device))
+                d["res"] = SimpleNamespace(cam_to_world=torch.cat(poses)[:n_real])
             elif task == "semantics":
                 # the class map leaves the card, not the full-size logits
                 d["classes"] = torch.argmax(preds, dim=-1)
@@ -323,7 +388,9 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
     return testing_log
 
 
-def main(argv=None):
+def main(argv=None, devices: Optional[Sequence] = None):
+    """The CLI; `devices` (a list of torch devices) in place of
+    `--device` / `--num_devices`."""
     opt = config_parser().parse_args(argv)
     if opt.search_dir:
         opt.scene = opt.grayscale = opt.task = opt.section = None
@@ -337,6 +404,7 @@ def main(argv=None):
 
     network_paths = config_weight_path(
         opt.network_in, opt.keywords, opt.search_dir, opt.min_ckpt_iter, opt.max_ckpt_iter)
+    devices = eval_devices(opt, devices)
     logs = []
     for network_path in network_paths:
         if opt.search_dir:
@@ -348,7 +416,8 @@ def main(argv=None):
             sections, tiny, fullsize, uncertainty = (
                 opt.section, opt.tiny, opt.fullsize, opt.uncertainty)
         logs.append(evaluate_network(
-            opt, network_path, scene, grayscale, task, sections, tiny, fullsize, uncertainty))
+            opt, network_path, scene, grayscale, task, sections, tiny, fullsize, uncertainty,
+            devices))
     return logs
 
 

@@ -23,6 +23,20 @@ differentiable solver instead (`train/dsac_step.py`), with the same
 augmentation, its principal-point shift in the solver's camera, and solver
 draws from a generator keyed by (epoch, batch).
 
+Data parallelism: `--batch_size` is the global batch. `--num_devices N`
+starts N ranks on this host, one card each (`cli/common.py::spawn_ranks`),
+and a run launched through CROSSLOC_COORDINATOR / CROSSLOC_NUM_PROCESSES /
+CROSSLOC_PROCESS_ID (or torch's MASTER_ADDR, WORLD_SIZE, RANK) joins that
+job (`parallel/distributed.py`). Each rank reads its slice of the dataset,
+draws the global batch's augmentation (and solver) draws and takes its own
+rows, so a 2-rank run of identical frames equals a 1-rank run of the global
+batch; the gradients are averaged after the backward, or with `--zero`
+reduce-scattered into each rank's shard of the parameters and Adam moments
+(`parallel/mesh.py`). Only rank 0 writes `output.log`, the `.net` files and
+the done flag; the ZeRO gathers and the checkpoint saves are entered by
+every rank on rank-symmetric conditions. `--ckpt_backend orbax` writes
+`torch.distributed.checkpoint` directories `<output dir>/<step>/`.
+
 Two departures from the JAX CLI, both fixes of its defects (ROADMAP queue
 3): a log-parse resume sets the LR schedule's clock to the resumed step
 (R5: the JAX CLI restarts optax's count at 0), and with
@@ -32,6 +46,7 @@ written snapshot (R3).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import time
@@ -40,7 +55,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import compat, models
+from .. import compat, models, parallel
 from ..data import (
     AugmentConfig,
     augment_batch,
@@ -60,8 +75,6 @@ from ..train import (
 )
 from ..utils import config_log, read_training_log
 from . import common
-
-_PARALLEL_TODO = "--num_devices > 1, --zero and --ckpt_backend orbax are ROADMAP queue 1, item 13"
 
 
 def config_parser(description="Initialize a scene coordinate regression network."):
@@ -97,9 +110,14 @@ def config_parser(description="Initialize a scene coordinate regression network.
     parser.add_argument("--image_height", type=int, default=480,
                         help="standard input image height")
     parser.add_argument("--num_devices", type=int, default=1,
-                        help="data-parallel device count (not in the port yet; must be 1)")
+                        help="data-parallel training over N ranks on this host, one card "
+                             "each (--device cpu: N CPU ranks); --batch_size is the global "
+                             "batch")
     parser.add_argument("--zero", action="store_true",
-                        help="sharded parameters and Adam moments (not in the port yet)")
+                        help="ZeRO: shard the parameters and Adam moments over the "
+                             "data-parallel ranks (out-channel sharding, "
+                             "parallel.param_spec); needs --num_devices > 1 or a "
+                             "multi-process run, with the rank count dividing 32")
     parser.add_argument("--e2e_pose_loss", action="store_true",
                         help="DSAC end-to-end training: minimise the expected pose loss "
                              "through the differentiable RANSAC solver (coord task only)")
@@ -116,7 +134,8 @@ def config_parser(description="Initialize a scene coordinate regression network.
                         choices=["none", "msgpack", "orbax"],
                         help="full-state checkpoints (weights, Adam, step) beside each epoch's "
                              "snapshot for an exact resume; 'msgpack' writes the port's "
-                             "torch.save file")
+                             "torch.save file, 'orbax' torch.distributed.checkpoint "
+                             "directories <output dir>/<step>/")
     parser.add_argument("--snapshot_every_epochs", type=int, default=1,
                         help="write the per-epoch model.net every N epochs (the final epoch "
                              "always writes); a resume restarts from the last written one")
@@ -144,18 +163,15 @@ def normalize_opt(opt):
 
 
 def _reject_unported(opt) -> None:
-    """Refuse, before anything is written, what the port cannot run: flags of
-    open ROADMAP items, scenes of no known family (`get_nodata_value`, JAX's
-    exception and words; the JAX CLI raises them after it made the output
-    folder), and the net configurations the JAX package's `build_network`
-    refuses."""
+    """Refuse, before anything is written, what the port cannot run: scenes
+    of no known family (`get_nodata_value`, JAX's exception and words; the
+    JAX CLI raises them after it made the output folder), and the net
+    configurations the JAX package's `build_network` refuses."""
     get_nodata_value(opt.scene)
     if opt.task == "semantics" and opt.uncertainty is not None:
         raise NotImplementedError("semantics has no uncertainty head: pass --uncertainty none")
     if opt.task == "semantics" and not opt.fullsize:
         raise NotImplementedError("semantics requires --fullsize (the DUC output)")
-    if opt.num_devices > 1 or opt.zero or opt.ckpt_backend == "orbax":
-        raise NotImplementedError(_PARALLEL_TODO)
 
 
 def get_output_path(opt) -> str:
@@ -192,17 +208,27 @@ def solver_generator(epoch: int, batch_idx: int, device: torch.device) -> torch.
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def draws_rows(draws, lo: int, hi: int):
+    """The per-image augmentation draws of images [lo, hi); the batch-wide
+    ones (scale, angle, translation) as they are."""
+    return draws._replace(brightness=draws.brightness[lo:hi], contrast=draws.contrast[lo:hi])
+
+
 def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.device,
                  model: Optional[models.TransPoseNet] = None) -> TrainState:
     """The training loop shared by the train and finetune CLIs; returns the
     final state. Without `model` it builds the task's net with seeded
     weights; a given model (the finetune CLI's wired MLR net) is trained as
-    it comes. `--network_in` weights load into either."""
+    it comes. `--network_in` weights load into either. In a multi-process
+    run every rank calls it (module docstring)."""
     nodata_value = get_nodata_value(opt.scene)
+    rank, world = parallel.topology()
+    is_main = rank == 0
+    local_batch = opt.batch_size // world
     trainset, loader, mean = common.build_train_loader(
         opt.scene, opt.task, opt.grayscale, opt.real_data_domain, opt.real_data_chunk,
-        opt.sim_data_chunk, opt.fullsize, opt.batch_size, opt.real_only, opt.datasets_dir,
-        opt.image_height)
+        opt.sim_data_chunk, opt.fullsize, local_batch, opt.real_only, opt.datasets_dir,
+        opt.image_height, shard=(rank, world))
     if len(loader) == 0:
         raise ValueError(f"batch_size {opt.batch_size} exceeds dataset size {len(trainset)}: "
                          "no full batch can be formed (drop_last); reduce --batch_size")
@@ -224,16 +250,36 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
             model_path = os.path.join(output_dir, "model_epoch_plus_resume.net")
         else:
             model_path = os.path.join(output_dir, "model_resume.net")
-        compat.save_net(model_path, model)
+        if is_main:
+            compat.save_net(model_path, model)
     else:
         model_path = os.path.join(output_dir, "model.net")
     model.to(device)
     if device.type == "cuda":
         model.to(memory_format=torch.channels_last)
-    # Adam takes the parameters that train: frozen MLR towers stay out
-    trainable = [p for p in model.parameters() if p.requires_grad]
+    dp = None
+    if world > 1:
+        # rank 0's weights everywhere; frozen MLR towers stay replicated
+        dp = parallel.DataParallel(model, zero=opt.zero)
+        sharding = " with ZeRO parameter sharding" if opt.zero else ""
+        if opt.num_devices > 1:
+            logging.info("Data-parallel training over %d devices%s", world, sharding)
+        else:
+            logging.info("Multi-host data-parallel training: %d processes x %d local devices "
+                         "(global batch %d, local %d)%s", world, 1, opt.batch_size,
+                         local_batch, sharding)
+    # Adam takes the parameters that train (frozen MLR towers stay out);
+    # under ZeRO, this rank's shard and the replicated ones
+    trainable = (dp.update_params() if dp is not None
+                 else [p for p in model.parameters() if p.requires_grad])
     state = TrainState(model, make_optimizer(trainable, opt.learningrate, steps_per_epoch,
-                                             opt.no_lr_scheduling))
+                                             opt.no_lr_scheduling), parallel=dp)
+    zero = dp is not None and dp.shard is not None
+
+    def full_params():
+        """The whole net in the block: under ZeRO an all-gather every rank
+        joins (on rank-symmetric conditions)."""
+        return dp.materialized() if zero else contextlib.nullcontext()
     save_period = 1 if opt.task == "semantics" else 5  # epochs between ckpt_iter_*.net files
 
     # --fullsize trains against full-resolution labels (subsample 1);
@@ -301,7 +347,9 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
                 device_prefetch(wire, device, keys=("image", "pose", opt.task))):
             start_time = time.time()
             B = batch["image"].shape[0]
-            draws = draw_augmentation(augment_generator(epoch, batch_idx), B, aug_cfg)
+            # the global batch's draws, this rank's rows [rank B, (rank + 1) B)
+            draws = draws_rows(draw_augmentation(augment_generator(epoch, batch_idx),
+                                                 B * world, aug_cfg), rank * B, (rank + 1) * B)
             focal = torch.tensor(float(batch["focal"][0]), device=device)
             images, labels, poses, focal, pp_shift = augment_batch(
                 images_from_wire(batch["image"]), batch[opt.task], batch["pose"], focal,
@@ -309,56 +357,79 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
             tb = TrainBatch(images, poses, labels, focal, pp_shift)
             if e2e:
                 metrics = dsac_step(state, tb,
-                                    generator=solver_generator(epoch, batch_idx, device))
+                                    generator=solver_generator(epoch, batch_idx, device),
+                                    global_batch=(rank * B, B * world) if world > 1 else None)
                 valid_rate = 1.0  # no per-pixel validity here; the log line keeps its format
             else:
                 metrics = train_step(state, tb, opt.task, opt.uncertainty, nodata_value,
                                      coord_cfg, depth_cfg, normal_cfg)
                 valid_rate = float(metrics["valid_rate"])
             loss = float(metrics["loss"])
-            time_avg = (time.time() - start_time) / B
-            iteration += B
+            time_avg = (time.time() - start_time) / (B * world)
+            iteration += B * world  # global samples
             logging.info(
                 "Iteration: %7d, Epoch: %3d, Total loss: %.2f, Valid: %.1f%%, Avg Time: %.3fs"
                 % (iteration, epoch, loss, valid_rate * 100, time_avg))
 
             # the reference's de-facto-epoch snapshot (it can fire mid-epoch)
-            # and the periodic ckpt_iter file; both weights only
+            # and the periodic ckpt_iter file; both weights only, written by
+            # rank 0. The conditions are rank-symmetric (global samples)
             fire_snapshot = iteration > save_counter
             fire_ckpt = (iteration > last_ckpt_iteration + save_period * len(trainset)
                          or last_ckpt_iteration == 0)
-            if fire_snapshot:
-                if (epoch_de_facto + 1) % snap_every == 0:
-                    logging.info("Saving snapshot of the network to %s." % model_path)
-                    compat.save_net(model_path, model)
-                save_counter = iteration + len(trainset)
-                epoch_de_facto += 1
-            if fire_ckpt:
-                compat.save_net(os.path.join(
-                    ckpt_output_dir, "ckpt_iter_{:07d}.net".format(iteration)), model)
-                last_ckpt_iteration = iteration
+            snap_write = fire_snapshot and (epoch_de_facto + 1) % snap_every == 0
+            with full_params() if (snap_write or fire_ckpt) else contextlib.nullcontext():
+                if fire_snapshot:
+                    if snap_write and is_main:
+                        logging.info("Saving snapshot of the network to %s." % model_path)
+                        compat.save_net(model_path, model)
+                    save_counter = iteration + len(trainset)
+                    epoch_de_facto += 1
+                if fire_ckpt:
+                    if is_main:
+                        compat.save_net(os.path.join(
+                            ckpt_output_dir, "ckpt_iter_{:07d}.net".format(iteration)), model)
+                    last_ckpt_iteration = iteration
 
         # the epoch's end: the full state is exact here, and only here
         if (epoch + 1) % snap_every == 0 or epoch == opt.epochs - 1:
-            logging.info("Saving snapshot of the network to %s." % model_path)
-            compat.save_net(model_path, model)
+            with full_params():
+                if is_main:
+                    logging.info("Saving snapshot of the network to %s." % model_path)
+                    compat.save_net(model_path, model)
         if manager is not None:
-            manager.save(state)
+            manager.save(state)  # every rank: a collective under ZeRO or DCP
 
     logging.info("Done without errors.")
-    for d in (output_dir, ckpt_output_dir):
-        with open(os.path.join(d, "FLAG_training_done.nodata"), "w") as f:
-            f.write("")
+    if manager is not None:
+        manager.flush()
+    if is_main:
+        for d in (output_dir, ckpt_output_dir):
+            with open(os.path.join(d, "FLAG_training_done.nodata"), "w") as f:
+                f.write("")
     return state
 
 
 def main(argv=None) -> str:
     """Parse, set up the output directory and log, train; returns the output
     directory."""
+    return _main(argv)
+
+
+def _main(argv=None, process_group=None) -> str:
+    """`main`; a rank of `--num_devices` gets its `process_group`
+    (init method, world size, rank)."""
     opt = normalize_opt(config_parser().parse_args(argv))
     _reject_unported(opt)
+    in_job = parallel.initialize_distributed(*(process_group or ()), device=opt.device)
+    common.check_parallel(opt, in_job)
+    if not in_job and opt.num_devices > 1:
+        common.spawn_ranks(opt, _main, argv)
+        return get_output_path(opt)
     device = common.select_device_from_env(opt.device)
-    output_dir, ckpt_output_dir = config_log(opt, get_output_path(opt))
+    output_dir, ckpt_output_dir = config_log(opt, get_output_path(opt),
+                                             file_logging=parallel.topology()[0] == 0)
+    common.log_process_group(device)
     run_training(opt, output_dir, ckpt_output_dir, device)
     return output_dir
 

@@ -116,6 +116,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -670,9 +672,10 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// fetched once; a function-local static is initialised once whatever the
+// number of host threads
 EncodeTiledFn encoder() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
+  static const EncodeTiledFn fn = [] {
     void* p = nullptr;
     cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
 #if CUDART_VERSION >= 12050
@@ -680,8 +683,8 @@ EncodeTiledFn encoder() {
 #else
     cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
 #endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
   return fn;
 }
 
@@ -735,10 +738,14 @@ constexpr int kMaxChecked = 256;
 
 // Before the first launch of `kernel` in a configuration on this device:
 // raise its shared-memory limit to 227 KB and check that at least one
-// cluster of this size and shared memory fits the card.
+// cluster of this size and shared memory fits the card. The table is shared
+// by every host thread (data-parallel eval launches on several cards from
+// several threads), so a mutex guards it.
 int ready_cluster(const void* kernel, const ClusterLaunch& launch, int cs) {
   static Checked checked[kMaxChecked];
   static int n_checked = 0;
+  static std::mutex table_mutex;
+  const std::lock_guard<std::mutex> lock(table_mutex);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;

@@ -8,7 +8,7 @@ no TF32 setting touches (the JAX package forces `Precision.HIGHEST` there).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -35,13 +35,16 @@ def _apply(mat, pts):
 
 def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_map=None,
                       config: CoordLossConfig = CoordLossConfig(),
-                      reduction: Optional[str] = "mean"):
+                      reduction: Optional[str] = "mean",
+                      count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
     """(loss, valid_rate) of the coord task.
 
     scene_coords [B, H, W, 3] predicted world coordinates; gt_coords
     [B, H, W, 3] (nodata marked); gt_poses [B, 4, 4] cam-to-world; cam_mat
     [3, 3] shared by the batch; uncertainty_map [B, H, W, 1] positive sigma
-    or None. `reduction` "mean" gives a scalar, None a [B] vector."""
+    or None. `reduction` "mean" gives a scalar, None a [B] vector. The
+    `num_valid > 0` gate holds for the whole batch: under data parallelism
+    `count_reduce` sums the valid count over the ranks first."""
     B, H, W, _ = scene_coords.shape
     N = H * W
     pred = scene_coords.reshape(B, N, 3).float()
@@ -70,7 +73,8 @@ def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_ma
     loss_l1 = torch.clamp(masked * (masked <= config.soft_clamp), min=1e-7)
     sqrt_in = torch.clamp(masked * (masked > config.soft_clamp), min=1e-7)
     loss_sqrt = torch.clamp(torch.sqrt(config.soft_clamp * sqrt_in + 1e-7), min=1e-7)
-    loss_reproj = torch.where(num_valid > 0, loss_l1 + loss_sqrt, torch.zeros_like(loss_l1))
+    batch_valid = num_valid if count_reduce is None else count_reduce(num_valid)
+    loss_reproj = torch.where(batch_valid > 0, loss_l1 + loss_sqrt, torch.zeros_like(loss_l1))
 
     valid_gt_f = valid_gt.to(pred.dtype)
     if uncertainty_map is None:

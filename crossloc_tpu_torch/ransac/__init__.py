@@ -3,6 +3,7 @@ the DSAC expected pose loss, on torch tensors."""
 from .config import PoseLossConfig, RansacConfig
 from .loss import expected_pose_loss, pose_loss
 from .rgbd import RgbdResult, expected_pose_loss_rgbd, solve_rgbd
+from .sharded import solve_batch_hypsharded
 from .solver import (
     RansacResult,
     apply_pp_shift,
@@ -25,5 +26,6 @@ __all__ = [
     "sample_hypotheses",
     "soft_inlier_score",
     "solve_batch",
+    "solve_batch_hypsharded",
     "solve_rgbd",
 ]

@@ -232,54 +232,69 @@ def solve_batch(
     the winner from the softmax (`chosen` [B] gives the draw, else
     `generator` after the hypothesis draws). Gradients flow to scene_coords.
     """
-    B = scene_coords.shape[0]
-    device = scene_coords.device
-    tau = cfg.inlier_threshold
-    rows = torch.arange(B, device=device)
-    with solver_precision(device):
+    with solver_precision(scene_coords.device):
         coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg, pp_shift)
         pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
-        errs = _project_errors(pose6, coords, grid, cams, cfg.max_pixel_error)  # [B, H, N]
-        scores = soft_inlier_score(errs, cfg)
-        any_valid = hyp_valid.any(-1)
-        masked = torch.where(hyp_valid, scores, -torch.inf)
-        probs = selection_probs(scores, hyp_valid)
+        scores, hard = score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg)
+        return select_and_refine(pose6, hyp_valid, scores, hard, coords, grid, cams, cfg,
+                                 training=training, chosen=chosen, generator=generator)
 
-        if training:
-            if chosen is None:
-                chosen = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            chosen = torch.as_tensor(chosen, device=device).long()
-        elif cfg.eval_selection == "hard":
-            hard = torch.where(hyp_valid, (errs < tau).sum(-1), -1)
-            chosen = torch.argmax(hard, dim=-1)
-        else:
-            chosen = torch.argmax(probs, dim=-1)
 
-        if not training and cfg.refine_top_k > 1:
-            k = min(cfg.refine_top_k, pose6.shape[1])
-            sel = masked if cfg.eval_selection != "hard" else hard
-            top_idx = torch.topk(sel, k, dim=-1).indices  # [B, k]
-            cand = torch.gather(pose6, 1, top_idx[..., None].expand(B, k, 6))
-            refined = refine_pose(cand, coords, grid, cams, cfg)
-            final = soft_inlier_score(_project_errors(refined, coords, grid, cams,
-                                                      cfg.max_pixel_error), cfg)
-            best = torch.argmax(final, dim=-1)
-            win = refined[rows, best]
-            chosen = top_idx[rows, best]
-        else:
-            win = refine_pose(pose6[rows, chosen][:, None], coords, grid, cams, cfg)[:, 0]
+def score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg: RansacConfig):
+    """(soft inlier scores [B, H], hard inlier counts [B, H], -1 where the
+    hypothesis is invalid) of each hypothesis."""
+    errs = _project_errors(pose6, coords, grid, cams, cfg.max_pixel_error)  # [B, H, N]
+    hard = torch.where(hyp_valid, (errs < cfg.inlier_threshold).sum(-1), -1)
+    return soft_inlier_score(errs, cfg), hard
 
-        final_errs = _project_errors(win[:, None], coords, grid, cams, cfg.max_pixel_error)[:, 0]
-        inliers = (final_errs < tau).sum(-1)
-        plog = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)), 0.0)
-        entropy = -(probs * plog).sum(-1)
-        return RansacResult(
-            cam_to_world=invert_se3(pose_vec_to_w2c(win)),
-            pose_w2c6=win,
-            scores=scores,
-            probs=probs,
-            chosen=chosen,
-            inlier_count=inliers,
-            valid=any_valid,
-            entropy=entropy,
-        )
+
+def select_and_refine(pose6, hyp_valid, scores, hard, coords, grid, cams, cfg: RansacConfig,
+                      training: bool = False, chosen=None,
+                      generator: Optional[torch.Generator] = None) -> RansacResult:
+    """The winner of a scored hypothesis pool and its refinement (the rest
+    of `solve_batch`)."""
+    B = coords.shape[0]
+    device = coords.device
+    tau = cfg.inlier_threshold
+    rows = torch.arange(B, device=device)
+    any_valid = hyp_valid.any(-1)
+    masked = torch.where(hyp_valid, scores, -torch.inf)
+    probs = selection_probs(scores, hyp_valid)
+
+    if training:
+        if chosen is None:
+            chosen = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        chosen = torch.as_tensor(chosen, device=device).long()
+    elif cfg.eval_selection == "hard":
+        chosen = torch.argmax(hard, dim=-1)
+    else:
+        chosen = torch.argmax(probs, dim=-1)
+
+    if not training and cfg.refine_top_k > 1:
+        k = min(cfg.refine_top_k, pose6.shape[1])
+        sel = masked if cfg.eval_selection != "hard" else hard
+        top_idx = torch.topk(sel, k, dim=-1).indices  # [B, k]
+        cand = torch.gather(pose6, 1, top_idx[..., None].expand(B, k, 6))
+        refined = refine_pose(cand, coords, grid, cams, cfg)
+        final = soft_inlier_score(_project_errors(refined, coords, grid, cams,
+                                                  cfg.max_pixel_error), cfg)
+        best = torch.argmax(final, dim=-1)
+        win = refined[rows, best]
+        chosen = top_idx[rows, best]
+    else:
+        win = refine_pose(pose6[rows, chosen][:, None], coords, grid, cams, cfg)[:, 0]
+
+    final_errs = _project_errors(win[:, None], coords, grid, cams, cfg.max_pixel_error)[:, 0]
+    inliers = (final_errs < tau).sum(-1)
+    plog = torch.where(probs > 0, torch.log(torch.clamp(probs, min=1e-30)), 0.0)
+    entropy = -(probs * plog).sum(-1)
+    return RansacResult(
+        cam_to_world=invert_se3(pose_vec_to_w2c(win)),
+        pose_w2c6=win,
+        scores=scores,
+        probs=probs,
+        chosen=chosen,
+        inlier_count=inliers,
+        valid=any_valid,
+        entropy=entropy,
+    )

@@ -9,12 +9,13 @@ ROADMAP R5). The uncertainty channel splits off the last (channel) axis.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from ..geometry import intrinsics
+from ..parallel import DataParallel
 from ..losses import (
     CoordLossConfig,
     DepthLossConfig,
@@ -41,8 +42,11 @@ def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optiona
                  num_task_channel: int, nodata_value: float = -1.0,
                  coord_cfg: Optional[CoordLossConfig] = None,
                  depth_cfg: Optional[DepthLossConfig] = None,
-                 normal_cfg: Optional[NormalLossConfig] = None, reduction: Optional[str] = "mean"):
-    """Split the uncertainty channel and compute the task's loss: (loss, valid_rate)."""
+                 normal_cfg: Optional[NormalLossConfig] = None, reduction: Optional[str] = "mean",
+                 count_reduce=None):
+    """Split the uncertainty channel and compute the task's loss: (loss,
+    valid_rate). `count_reduce` makes the coord loss's valid-pixel gate
+    batch-global under data parallelism (`scene_coords_loss`)."""
     if uncertainty == "MLE":
         preds = predictions[..., :num_task_channel]
         unc = predictions[..., num_task_channel:]
@@ -57,7 +61,8 @@ def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optiona
             shift = torch.zeros_like(cam_mat)
             shift[0, 2], shift[1, 2] = batch.pp_shift[0], batch.pp_shift[1]
             cam_mat = cam_mat + shift
-        return scene_coords_loss(preds, batch.labels, batch.poses, cam_mat, unc, cfg, reduction)
+        return scene_coords_loss(preds, batch.labels, batch.poses, cam_mat, unc, cfg, reduction,
+                                 count_reduce)
     if task == "depth":
         cfg = depth_cfg or DepthLossConfig(nodata_value=nodata_value)
         return depth_loss(preds, batch.labels, unc, cfg, reduction)
@@ -102,25 +107,39 @@ def make_optimizer(params, learning_rate: float, steps_per_epoch: int = 1,
 
 @dataclass
 class TrainState:
-    """Model, optimizer and the number of updates done (the LR's clock)."""
+    """Model, optimizer, the number of updates done (the LR's clock) and,
+    in a multi-process run, the gradient exchange (`parallel.DataParallel`)."""
 
     model: nn.Module
     optimizer: Optimizer
     step: int = 0
+    parallel: Optional[DataParallel] = None
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over all tensors, in float32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def update_params(state: TrainState) -> List[torch.Tensor]:
+    """The tensors the optimizer updates: the trainable parameters, or under
+    ZeRO this rank's shard and the replicated ones."""
+    if state.parallel is not None:
+        return state.parallel.update_params()
+    return [p for p in state.model.parameters() if p.requires_grad]
+
+
+def param_sum(state: TrainState, per_param: List[torch.Tensor]) -> torch.Tensor:
+    """Sum of per-parameter values (in `update_params` order) over the whole
+    net: under ZeRO the shards' parts are summed over the ranks."""
+    if state.parallel is not None:
+        return state.parallel.param_sum(per_param)
+    return sum(v.float() for v in per_param)
 
 
 def apply_gradients(state: TrainState, params) -> torch.Tensor:
-    """The optimizer's update of `params` from their `.grad`, in place: the
-    optional global-norm clip, the step's LR, Adam; counts the update.
-    Returns the gradients' global norm (before the clip)."""
+    """The optimizer's update of `params` (`update_params(state)`) from their
+    `.grad`, in place: the optional global-norm clip, the step's LR, Adam;
+    counts the update. Returns the gradients' global norm (before the clip),
+    in float32 over the whole net."""
     opt = state.optimizer
     grads = [p.grad for p in params if p.grad is not None]
-    grad_norm = _global_norm(grads)
+    grad_norm = torch.sqrt(param_sum(state, [g.float().square().sum() for g in grads]))
     if opt.grad_clip is not None:
         # optax.clip_by_global_norm: scale by clip / norm only when norm >= clip
         scale = torch.where(grad_norm < opt.grad_clip, torch.ones_like(grad_norm),
@@ -139,12 +158,24 @@ def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Opt
                normal_cfg: Optional[NormalLossConfig] = None) -> dict:
     """One update in place; returns {"loss", "valid_rate", "grad_norm"} as
     0-d tensors on the device (reading them waits for the step)."""
-    model = state.model
-    params = [p for p in model.parameters() if p.requires_grad]
+    model, dp = state.model, state.parallel
+    params = update_params(state)
     state.optimizer.adam.zero_grad(set_to_none=True)
-    preds = model(batch.images)
-    loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
-                                    nodata_value, coord_cfg, depth_cfg, normal_cfg)
-    loss.backward()
+    if dp is None:
+        preds = model(batch.images)
+        loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
+                                        nodata_value, coord_cfg, depth_cfg, normal_cfg)
+        loss.backward()
+        grad_norm = apply_gradients(state, params)
+        return {"loss": loss.detach(), "valid_rate": valid_rate, "grad_norm": grad_norm}
+    with dp.materialized():
+        preds = model(batch.images)
+        loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
+                                        nodata_value, coord_cfg, depth_cfg, normal_cfg,
+                                        count_reduce=dp.all_sum)
+        loss.backward()
+        dp.reduce_gradients()
     grad_norm = apply_gradients(state, params)
-    return {"loss": loss.detach(), "valid_rate": valid_rate, "grad_norm": grad_norm}
+    # the batch's loss and valid rate: means of equal-sized rank slices
+    return {"loss": dp.all_mean(loss), "valid_rate": dp.all_mean(valid_rate),
+            "grad_norm": grad_norm}

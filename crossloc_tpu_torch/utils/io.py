@@ -114,11 +114,13 @@ def _stdin_is_foreground_tty() -> bool:
 
 
 def config_directory(output_dir: str, ckpt_dir: str, auto_resume: bool, epoch_plus: bool,
-                     default_network_in: Optional[str] = None):
+                     default_network_in: Optional[str] = None, mutate_fs: bool = True):
     """Resolve the output and checkpoint directories and the weight to resume
     from: (output_dir, ckpt_output_dir, network_to_load, auto_resume,
     epoch_plus). An existing output directory of a fresh run is wiped; when
-    stdin is a foreground TTY the reference's prompt asks first."""
+    stdin is a foreground TTY the reference's prompt asks first.
+    `mutate_fs=False` resolves the same paths and creates or wipes nothing
+    (the ranks other than 0 of a multi-process run)."""
     output_dir = os.path.abspath(output_dir)
     ckpt_output_dir = (os.path.abspath(os.path.join(ckpt_dir, os.path.basename(output_dir)))
                        if ckpt_dir else output_dir)
@@ -141,7 +143,7 @@ def config_directory(output_dir: str, ckpt_dir: str, auto_resume: bool, epoch_pl
     if auto_resume or epoch_plus:
         if auto_resume:
             resume_dir = output_dir
-        else:
+        elif mutate_fs:
             os.makedirs(output_dir, exist_ok=True)
         if os.path.exists(os.path.join(resume_dir, "model_auto_resume.net")):
             existing = os.path.join(resume_dir, "model_auto_resume.net")
@@ -156,7 +158,10 @@ def config_directory(output_dir: str, ckpt_dir: str, auto_resume: bool, epoch_pl
         if not os.path.exists(existing):
             raise FileNotFoundError(f"Expected model weight at {existing} is not found!")
         network_to_load = os.path.abspath(existing)
-        os.makedirs(ckpt_output_dir, exist_ok=True)
+        if mutate_fs:
+            os.makedirs(ckpt_output_dir, exist_ok=True)
+    elif not mutate_fs:
+        network_to_load = None
     else:
         if os.path.exists(output_dir):
             overwrite = True
@@ -184,28 +189,35 @@ def _git_sha() -> str:
         return "unknown"
 
 
-def config_log(opt, output_dirname: str) -> Tuple[str, str]:
+def config_log(opt, output_dirname: str, file_logging: bool = True) -> Tuple[str, str]:
     """File + stdout logging; returns (output_dir, ckpt_output_dir). Sets
     `opt.network_in`, `opt.auto_resume` and `opt.epoch_plus` as the
-    reference does."""
+    reference does. `file_logging=False` logs to stdout only and creates or
+    wipes no directory: in a multi-process run only rank 0 writes
+    `output.log`, the store of the run's progress, and mutates the output
+    tree."""
     output_dir, ckpt_output_dir, network_to_load, flag_ar, flag_ep = config_directory(
-        output_dirname, opt.ckpt_dir, opt.auto_resume, opt.epoch_plus, opt.network_in)
+        output_dirname, opt.ckpt_dir, opt.auto_resume, opt.epoch_plus, opt.network_in,
+        mutate_fs=file_logging)
     if not (opt.network_in is not None and network_to_load is None):
         opt.network_in = network_to_load
     opt.auto_resume = flag_ar
     opt.epoch_plus = flag_ep
 
     log_file = os.path.join(output_dir, "output.log")
-    if opt.epoch_plus:
+    if opt.epoch_plus and file_logging:
         shutil.copy2(os.path.join(os.path.dirname(network_to_load), "output.log"), log_file)
 
     root = logging.getLogger()
     for h in list(root.handlers):  # repeated in-process calls log afresh
         root.removeHandler(h)
     mode = "a" if (opt.auto_resume or opt.epoch_plus) else "w"
+    handlers = [logging.StreamHandler(sys.stdout)]
+    if file_logging:
+        handlers.append(logging.FileHandler(log_file, mode=mode))
     logging.basicConfig(
         level=logging.INFO,
-        handlers=[logging.StreamHandler(sys.stdout), logging.FileHandler(log_file, mode=mode)],
+        handlers=handlers,
         format="%(asctime)s, %(levelname)s: %(message)s",
         datefmt="%Y-%m-%d %H:%M:%S",
         force=True,

@@ -222,8 +222,15 @@ def test_checkpoint_manager_keeps_the_newest_five(tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir())[0] == "state_000000003.state"
     state.step = 0
     assert mgr.restore_latest(state).step == 7
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CheckpointManager(str(tmp_path), backend="orbax")
+    # the orbax backend: torch.distributed.checkpoint directories <dir>/<step>/
+    dcp = CheckpointManager(str(tmp_path / "dcp"), backend="orbax")
+    dcp.save(state)
+    assert dcp.all_steps() == [7] and (tmp_path / "dcp" / "7" / ".metadata").exists()
+    other_net = models.build_network("coord", "MLE", tiny=True)
+    other = TrainState(other_net, make_optimizer(other_net.parameters(), 2e-4))
+    assert dcp.restore_latest(other).step == 7
+    for (k, a), (_, r) in zip(net.state_dict().items(), other.model.state_dict().items()):
+        assert torch.equal(a, r), k
 
 
 def test_tasks_other_than_coord_raise(jax_net_and_params):

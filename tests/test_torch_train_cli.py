@@ -228,14 +228,19 @@ def test_trained_net_loads_in_the_jax_package(ws, monkeypatch):
     assert np.abs(got - ref).max(axis=(0, 1, 2)).max() <= 1e-3 * ref.std(axis=(0, 1, 2)).min()
 
 
-@pytest.mark.parametrize("flag, item", [
-    (["--task", "semantics", "--fullsize"], "no uncertainty head"),
-    (["--task", "semantics", "--uncertainty", "none"], "requires --fullsize"),
-    (["--num_devices", "2"], "item 13"),
-    (["--zero"], "item 13"), (["--ckpt_backend", "orbax"], "item 13"),
+@pytest.mark.parametrize("flag, exc, item", [
+    (["--task", "semantics", "--fullsize"], NotImplementedError, "no uncertainty head"),
+    (["--task", "semantics", "--uncertainty", "none"], NotImplementedError, "requires --fullsize"),
+    (["--zero"], ValueError, "requires a device mesh"),
+    (["--num_devices", "3", "--batch_size", "4"], ValueError, "divisible by num_devices"),
+    (["--num_devices", "3", "--batch_size", "3", "--zero"], ValueError,
+     "data=3 must divide 32"),
 ])
-def test_unported_flags_raise(ws, monkeypatch, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_flags_raise(ws, monkeypatch, flag, exc, item):
+    """What the port refuses, before anything is written: the semantics
+    configurations the JAX package's `build_network` refuses, and the
+    parallel flags a run cannot honour (the JAX CLI's words)."""
+    with pytest.raises(exc, match=item):
         _run(cli.main, ws, _args(ws, "no", ["--device", "cpu", *flag]), monkeypatch)
     assert not list(ws.glob("output/*-sno-*"))
 
