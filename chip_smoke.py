@@ -75,6 +75,19 @@ Phases:
            (f) the hypothesis-sharded solver on 2 ranks against solve_batch;
            (g) data-parallel eval over [cuda:0, cuda:0]; the step times
            (two ranks on one card, not a scaling figure);
+  loader   the host data path: the host's headers, libraries and cores; the
+           native image decoder built (g++) and held against PIL on 480x720
+           frames of the plane scene (the same bits; resized to 240 rows
+           within 1e-2); crossloc_tpu_torch/tools/loader_bench.py with the
+           coord step times (this run's train phase, else PERF.md §5's); the
+           training CLI with encoder_pretrain.sh's settings, --bf16, B=12,
+           96 frames, 2 epochs, once with the native decoder and once with
+           PIL: wall and loader wait per step, 28 + 28 launches per step, no
+           image of the native run read by PIL; K1 at bench's six shapes
+           (B=128, bf16, stem1 1.4e9 elements) against the plain twin;
+           crossloc_tpu_torch/tools/bench.py at B=128 (bf16 image -> pose,
+           28 K1 launches per batch). Without the decoder's headers it says
+           so and measures PIL alone;
   profile  (extra, not in the default run) kernel-time breakdown of one
            image -> pose batch, one coord and one semantics training step, one
            finetune step and one e2e step with torch.profiler;
@@ -138,6 +151,11 @@ TASK_REPORT_LINES = {
     "depth": ("absolute relative error, mean:", "RMS error, mean:"),
     "normal": ("angular prediction error, mean:",),
     "semantics": ("Pixel accuracy, mean:", "Mean IoU, mean:", "Frequency weighted IoU, mean:")}
+# the coord train step at B=12, 480x720 on an H100 at 700 W (PERF.md §5): the loader
+# phase's consumer times when the train phase has not measured them this run
+STEP_MS_RECORDED = {"bfloat16": 38.14, "float32": 274.89}
+LOADER_FRAMES = 96  # 8 steps of 12 per epoch
+BENCH_BATCH = 128  # tools/bench.py's default batch, as the root bench.py's
 FT_FWD, FT_BWD = 67, 33  # K1 per forward (3 x 17 + 5 + 11), K1-bwd per step (17 + 5 + 11)
 # the permissive solver config of the JAX package's DSAC test
 # (tests/test_train.py:411-416): an untrained net then has valid hypotheses
@@ -264,6 +282,29 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _host_probe() -> dict:
+    """What the host offers the native decoder: the headers under
+    /usr/include, whether g++ finds zlib's (the decoder needs it; libjpeg's
+    is optional), the libraries `ldconfig` lists, g++, and the cores."""
+    headers = {h: os.path.exists(os.path.join("/usr/include", h))
+               for h in ("png.h", "jpeglib.h", "zlib.h")}
+    cxx = shutil.which("g++")
+    ok = False
+    if cxx:
+        ok = subprocess.run([cxx, "-E", "-x", "c++", "-", "-o", os.devnull],
+                            input="#include <zlib.h>\n", capture_output=True, text=True,
+                            timeout=60).returncode == 0
+    try:
+        libs = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                              timeout=60).stdout
+        libs = sorted({ln.split()[0] for ln in libs.splitlines()
+                       if any(k in ln for k in ("libpng", "libjpeg", "libz."))})
+    except OSError as e:
+        libs = [f"ldconfig failed: {e}"]
+    return dict(headers=headers, zlib_ok=ok, gxx=cxx, libraries=libs,
+                usable_cores=len(os.sched_getaffinity(0)), cpu_count=os.cpu_count())
+
+
 def _on_target(net, target):
     """`net` with the value of its coordinate channels replaced by `target`
     [B, h, w, 3] and their gradient passed on to the net unchanged: the
@@ -290,6 +331,7 @@ class Smoke:
         self.kernels = {}  # name -> dict of the kernels line
         self.launches = {}  # main path -> {kernel name: launches counted on that path's run}
         self.device_name = None
+        self.train_step_ms = {}  # dtype name -> the train phase's step ms, when it ran
 
     # -- phase 1 -----------------------------------------------------------
     def phase_card(self):
@@ -1039,7 +1081,7 @@ class Smoke:
             f"and {bwd16} K1-bwd launches")
         if fwd16 != 28 * 2 or bwd16 != 28 * 2 or not all(math.isfinite(v) for v in losses16):
             raise AssertionError("the --bf16 training run is off")
-        self._step_time(datasets)
+        self.train_step_ms = {k: v["ms"] for k, v in self._step_time(datasets).items()}
         shutil.rmtree(work, ignore_errors=True)
 
     # -- phase 6 -----------------------------------------------------------
@@ -2429,6 +2471,234 @@ class Smoke:
                            steps=out), f, indent=1)
         return out
 
+    # -- phase 10 ----------------------------------------------------------
+    def phase_loader(self):
+        """The host data path on the card machine: the probe, the native
+        decoder's build and its bits against PIL, `tools/loader_bench.py`,
+        the training CLI with each decoder, and `tools/bench.py`."""
+        import numpy as np
+        import torch
+
+        from crossloc_tpu_torch import data, native, ops
+        from crossloc_tpu_torch.data import dataset as tds
+        from crossloc_tpu_torch.tools import bench, loader_bench
+
+        probe = _host_probe()
+        for k, v in probe.items():
+            log(f"host probe: {k}: {v}")
+        report = dict(device=self.device_name, smi=nvidia_smi_line(), probe=probe)
+        t0 = time.perf_counter()
+        built = native.ensure_built(quiet=False)
+        report["native"] = dict(built=built, build_s=native.build_seconds,
+                                wall_s=time.perf_counter() - t0, error=native.build_error(),
+                                library=str(native.library_path()))
+        if built:
+            how = ("found built" if native.build_seconds is None
+                   else f"built in {native.build_seconds:.2f} s (g++ -O3, no -march)")
+            log(f"native decoder {how}: {native.library_path()}")
+        elif probe["zlib_ok"]:
+            raise AssertionError(f"zlib's header is there but the native decoder did not build: "
+                                 f"{native.build_error()}")
+        else:
+            log("the card machine cannot build the native decoder: zlib's header is missing "
+                f"({native.build_error().splitlines()[0]}); PIL alone below")
+        if built and not native.jpeg():
+            log("no jpeglib.h: the native decoder is built without libjpeg (PNG native, JPEG "
+                "through PIL)")
+
+        work = WORK_DIR + "_loader"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        scene = os.path.join(datasets, "urbanscape", "train_sim")
+        t0 = time.perf_counter()
+        data.write_fake_dataset(scene, n=LOADER_FRAMES, img_h=IMG_H, img_w=IMG_W, focal=480.0,
+                                seed=0, scene="plane")
+        log(f"wrote a {LOADER_FRAMES}-frame {IMG_H}x{IMG_W} plane scene in "
+            f"{time.perf_counter() - t0:.1f} s")
+        rgb = os.path.join(scene, "rgb")
+        paths = [os.path.join(rgb, f) for f in sorted(os.listdir(rgb))]
+        if built:
+            same, worst = 0, 0.0
+            for p in paths[:8]:
+                img = native.load_image_std_height(p, IMG_H)  # the native decoder, no fallback
+                same += int(img is not None and np.array_equal(
+                    img, tds._resize_height(tds._load_image(p), IMG_H)))
+                half = native.load_image_std_height(p, IMG_H // 2)
+                if half is None:
+                    raise AssertionError(f"the native decoder could not read {p}")
+                worst = max(worst, float(np.abs(
+                    half - tds._resize_height(tds._load_image(p), IMG_H // 2)).max()))
+            log(f"native against PIL on 8 frames: {same}/8 the same bits at {IMG_H}x{IMG_W}; "
+                f"resized to {IMG_H // 2} rows max |diff| {worst:.3e} (limit 1e-2)")
+            report["native_vs_pil"] = dict(same_bits=same, resized_max_abs=worst)
+            if same != 8 or not worst < 1e-2:
+                raise AssertionError("the native decoder disagrees with PIL")
+
+        steps_ms = {d: self.train_step_ms.get(d, STEP_MS_RECORDED[d]) for d in ("bfloat16", "float32")}
+        source = "this run's train phase" if self.train_step_ms else "the recorded card run (PERF.md §5)"
+        log(f"loader_bench with the coord step times of {source}: {steps_ms} ms")
+        report["loader_bench"] = loader_bench.main([
+            "--step-ms", str(steps_ms["bfloat16"]), str(steps_ms["float32"]),
+            "--workdir", work])
+
+        decoders = ["native", "PIL"] if built else ["PIL"]
+        report["cli"] = {}
+        for dec in decoders:
+            report["cli"][dec] = r = self._loader_cli_run(dec, datasets, work)
+            log(f"train_single_task --bf16 with the {dec} decoder (dataset says "
+                f"{r['decoder']!r}, {r['fallbacks']} reads fell back to PIL): {r['steps']} steps, CLI wall {r['wall_s']:.2f} s = "
+                f"{r['wall_ms_per_step']:.1f} ms a step, batch to batch {r['loop_ms_per_step']:.1f} "
+                f"ms (median; mean {r['loop_ms_mean']:.1f}), waits on the loader "
+                f"{r['wait_ms_per_step']:.2f} ms a step from each epoch's third batch on "
+                f"({r['first_wait_ms']} ms for the first two), the uint8 wire conversion "
+                f"{r['wire_ms_per_step']:.1f} ms a step on the main thread, "
+                f"{r['k1_per_step']:g} + {r['k1_bwd_per_step']:g} norm launches a step")
+            if r["decoder"] != dec:
+                raise AssertionError(f"the dataset used {r['decoder']}, not {dec}")
+            if r["fallbacks"]:
+                raise AssertionError(f"{r['fallbacks']} images were read by PIL in the {dec} run")
+            if r["k1_per_step"] != 28 or r["k1_bwd_per_step"] != 28:
+                raise AssertionError("expected 28 + 28 norm launches a step")
+            if r["launches"]:
+                self.launches[f"loader_{dec}"] = r["launches"]
+
+        report["bench_k1"] = self._bench_k1_check()
+        ops.group_norm_relu.launches = 0
+        out = bench.run(BENCH_BATCH, 10, "cuda")  # counts the timed batches' launches
+        log(json.dumps(out))
+        self.launches["bench"] = dict(groupnorm=ops.group_norm_relu.launches)
+        report["bench"] = out
+        if out["k1_launches_per_batch"] != 28 or not out["value"] > 0:
+            raise AssertionError(f"bench: {out}")
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "loader.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _bench_k1_check(self):
+        """K1 at the shapes `tools/bench.py` gives it: the 28-layer path's
+        six shapes at B=BENCH_BATCH in bf16, each at the path's ReLU, the
+        whole batch in one launch (stem1 holds 1.4e9 elements, 2.8 GB) and
+        held against the plain twin, which runs on chunks of images (the
+        norm is per image) to bound its fp32 temporaries. The tolerance is
+        `_forward_rows`' bf16 one."""
+        import torch
+
+        from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import _plan
+
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        B, chunk, rows = BENCH_BATCH, 16, []
+        atol, rtol = 1e-2, 2.0**-7
+        for C, H, W, relu, _ in GN_PATH_SHAPES:
+            G = min(32, C)
+            x = torch.empty(B, H, W, C, device="cuda", dtype=torch.bfloat16)
+            for i in range(0, B, chunk):
+                x[i:i + chunk] = torch.randn(x[i:i + chunk].shape, device="cuda",
+                                             generator=gen) * 2.0 + 3.0
+            scale = torch.randn(C, device="cuda", generator=gen)
+            bias = torch.randn(C, device="cuda", generator=gen)
+            y = group_norm_relu(x, scale, bias, G, 1e-5, relu)
+            torch.cuda.synchronize()
+            worst, ok = 0.0, True
+            for i in range(0, B, chunk):
+                ref = group_norm_relu_plain(x[i:i + chunk], scale, bias, G, 1e-5, relu).float()
+                err = (y[i:i + chunk].float() - ref).abs()
+                ok = ok and bool((err <= atol + rtol * ref.abs()).all())
+                worst = max(worst, float(err.max()))
+                del ref, err
+            design = _plan(B, H, W, C, G, torch.bfloat16).design
+            log(f"  K1 {design} C={C} {H}x{W} B={B} bfloat16 relu={relu} (bench's shape, "
+                f"{x.numel():,} elements): max_abs_err={worst:.3e} (limit {atol:g} + "
+                f"{rtol:g}*|ref|) {'ok' if ok else 'FAIL'}")
+            rows.append(dict(C=C, H=H, W=W, B=B, relu=relu, design=design, elements=x.numel(),
+                             max_abs_err=worst, ok=ok))
+            del x, y
+            torch.cuda.empty_cache()
+            if not ok:
+                raise AssertionError(f"K1 disagrees with plain at bench's C={C} {H}x{W} B={B}")
+        return rows
+
+    def _loader_cli_run(self, decoder, datasets, work):
+        """The training CLI with encoder_pretrain.sh's settings, --bf16, 2
+        epochs over the loader scene, with `decoder` ("PIL": the native
+        decoder reported unavailable in-process). The Loader's iterator is
+        wrapped to time each wait, and the CLI's `images_to_wire` to time the
+        conversion; the dataset is taken from `build_train_loader` to read
+        its `decoder` and its `fallbacks` (reads the native decoder left to
+        PIL; none may happen in the native run)."""
+        from crossloc_tpu_torch import native
+        from crossloc_tpu_torch.cli import common
+        from crossloc_tpu_torch.cli import train_single_task as train_cli
+        from crossloc_tpu_torch.data import pipeline
+
+        waits, yields, seen = [], [], {}  # per epoch: waits and the times batches came
+        wire_s = []  # the CLI's uint8 wire conversion of each batch's images, main thread
+        orig_iter, orig_build, orig_available, orig_wire = (
+            pipeline.Loader.__iter__, common.build_train_loader, native.available,
+            train_cli.images_to_wire)
+
+        def timed_wire(images):
+            t0 = time.perf_counter()
+            out = orig_wire(images)
+            wire_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_iter(loader):
+            it = orig_iter(loader)
+            waits.append([])
+            yields.append([])
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                t1 = time.perf_counter()
+                waits[-1].append(t1 - t0)
+                yields[-1].append(t1)
+                yield batch
+
+        def build(*a, **k):
+            out = orig_build(*a, **k)
+            seen["dataset"] = out[0]
+            return out
+
+        pipeline.Loader.__iter__ = timed_iter
+        common.build_train_loader = build
+        train_cli.images_to_wire = timed_wire
+        if decoder == "PIL":
+            native.available = lambda: False
+        try:
+            out_dir, losses, fwd, bwd, wall = self._run_cli(train_cli.main, work, PRETRAIN_ARGS + [
+                "--datasets_dir", datasets, "--ckpt_dir", os.path.join(work, "ckpts"),
+                "--session", f"loader_{decoder}", "--epochs", "2", "--bf16",
+                "--image_height", str(IMG_H)])
+        finally:
+            pipeline.Loader.__iter__ = orig_iter
+            common.build_train_loader = orig_build
+            native.available = orig_available
+            train_cli.images_to_wire = orig_wire
+        steps = 2 * LOADER_FRAMES // TRAIN_BATCH
+        if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"losses {losses}")
+        # the CLI's device_prefetch pulls two batches at an epoch's start, then
+        # one per step: the waits and batch-to-batch times from the third
+        # batch on are the steady state (snapshots fall inside a few gaps)
+        later = [w for ep in waits for w in ep[2:]]
+        gaps = sorted(b - a for ep in yields for a, b in zip(ep[1:], ep[2:]))
+        ds = seen["dataset"]
+        return dict(decoder=ds.decoder, fallbacks=ds.fallbacks, steps=steps,
+                    batches_per_epoch=[len(ep) for ep in waits],
+                    wall_s=wall, wall_ms_per_step=1e3 * wall / steps,
+                    loop_ms_per_step=1e3 * gaps[len(gaps) // 2],
+                    loop_ms_mean=1e3 * sum(gaps) / len(gaps),
+                    wait_ms_per_step=1e3 * sum(later) / len(later),
+                    first_wait_ms=[round(1e3 * (ep[0] + ep[1]), 2) for ep in waits],
+                    wire_ms_per_step=1e3 * sum(wire_s) / len(wire_s),
+                    k1_per_step=fwd / steps, k1_bwd_per_step=bwd / steps,
+                    launches=dict(groupnorm=fwd, groupnorm_backward=bwd), losses=losses)
+
     # -- extra phase, not in the default run ---------------------------------
     def phase_profile(self):
         """Where the time of one image -> pose batch, one training step (coord
@@ -2585,7 +2855,8 @@ class Smoke:
         return json.dumps({"kernels": out})
 
 
-PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel")
+PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel",
+          "loader")
 EXTRA_PHASES = ("profile", "converge")
 
 

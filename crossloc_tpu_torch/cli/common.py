@@ -11,7 +11,7 @@ import numpy as np
 import torch
 
 from .. import compat, models, parallel
-from ..data import CamLocDataset, Loader, get_label_mean
+from ..data import CamLocDataset, Loader, decoder_line, get_label_mean
 from ..device import resolve_device
 
 
@@ -134,6 +134,7 @@ def build_train_loader(scene: str, task: str, grayscale: bool, real_data_domain:
     dataset = CamLocDataset(roots, coord=task == "coord", depth=task == "depth",
                             normal=task == "normal", semantics=task == "semantics",
                             grayscale=grayscale, image_height=image_height)
+    print(decoder_line(dataset), flush=True)  # the console, not output.log
     family = "urbanscape" in scene.lower() or "naturescape" in scene.lower()
     mean = get_label_mean(scene, task, dataset=None if family else dataset)
     loader = Loader(dataset, batch_size=batch_size, shuffle=True, drop_last=True, shard=shard)

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from .. import compat, eval as evaluation, models, ransac
-from ..data import CamLocDataset, Loader, images_from_wire, images_to_wire, to_grayscale
+from ..data import (CamLocDataset, Loader, decoder_line, images_from_wire, images_to_wire,
+                    to_grayscale)
 from ..losses import get_nodata_value
 from .common import build_network, infer_num_encoders, select_device_from_env
 
@@ -244,6 +245,7 @@ def evaluate_network(opt, network_path: str, scene, grayscale, task, sections, t
                                  coord=task == "coord", depth=task == "depth",
                                  normal=task == "normal", semantics=task == "semantics",
                                  image_height=opt.image_height)
+        print(decoder_line(eval_set))
         loader = Loader(eval_set, batch_size=opt.batch_size)
         if opt.save_pred and task == "coord":
             pred_dir = os.path.abspath(os.path.join(

@@ -9,7 +9,7 @@ from .augment import (
     pp_shift_for_translation,
     rotation_z_pose,
 )
-from .dataset import IMAGE_HEIGHT, CamLocDataset, CamLocItem, trim_semantic_label
+from .dataset import IMAGE_HEIGHT, CamLocDataset, CamLocItem, decoder_line, trim_semantic_label
 from .means import get_label_mean
 from .pipeline import Loader, device_prefetch, images_from_wire, images_to_wire, to_grayscale
 from .synthetic import synth_sample, write_fake_dataset
@@ -23,6 +23,7 @@ __all__ = [
     "Loader",
     "augment_batch",
     "color_jitter",
+    "decoder_line",
     "device_prefetch",
     "draw_augmentation",
     "get_label_mean",

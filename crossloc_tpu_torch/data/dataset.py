@@ -12,18 +12,23 @@
 
 Modes: 0 = RGB only; 1 = RGB + ground truth (sparse tensors, or dense
 coordinates made from a depth PNG); 2 = RGB-D eye coordinates. Multiple
-roots concatenate. Images are decoded with PIL as raw [0, 1] RGB and
-resized to the standard height (focal rescaled to match); all augmentation
-and normalisation runs on the training device (data/augment.py).
+roots concatenate. Images are decoded as raw [0, 1] RGB and resized to the
+standard height (focal rescaled to match): by the port's native decoder
+(`crossloc_tpu_torch/native/`) when it builds, else by PIL; a dataset
+records which in `decoder`. All augmentation and normalisation runs on the
+training device (data/augment.py).
 """
 from __future__ import annotations
 
 import math
 import os
+import threading
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
+
+from .. import native
 
 IMAGE_HEIGHT = 480  # standard input height
 OUTPUT_SUBSAMPLE = 8
@@ -65,10 +70,35 @@ def _resize_height(img: np.ndarray, height: int) -> np.ndarray:
     return np.asarray(im, dtype=np.float32) / 255.0
 
 
-def _load_image_resized(path: str, image_height: int):
-    """(image [image_height, W', 3] float32, focal scale)."""
+def _load_image_resized(path: str, image_height: int, on_fallback=None):
+    """(image [image_height, W', 3] float32, focal scale): the native decoder
+    when it is available, PIL otherwise or for a file it cannot decode
+    (`on_fallback(path)` is then called). The two give the same bits when no
+    resize is needed; when one is, their resamplings differ by up to about
+    1e-2."""
+    if native.available():
+        dims = native.image_dims(path)
+        if dims is not None:
+            img = native.load_image_std_height(path, image_height)
+            if img is not None:
+                return img, image_height / dims[0]
+        if on_fallback is not None:
+            on_fallback(path)
     img = _load_image(path)
     return _resize_height(img, image_height), image_height / img.shape[0]
+
+
+def decoder_line(dataset) -> str:
+    """The console line that says which decoder `dataset` uses, and how many
+    of its files so far the native decoder could not read (PIL read them)."""
+    if dataset.decoder == "native":
+        jpeg = "" if native.jpeg() else "; JPEG through PIL: built without libjpeg"
+        n = dataset.fallbacks
+        more = f"; {n} file{'s' * (n != 1)} read by PIL so far" if n else ""
+        return f"Image decoder: native ({native.library_path()}{jpeg}{more})"
+    err = native.build_error()
+    why = f"native build failed: {err.splitlines()[0]}" if err else "native decoder not in use"
+    return f"Image decoder: PIL ({why})"
 
 
 def _load_tensor(path: str) -> np.ndarray:
@@ -110,7 +140,10 @@ class CamLocItem:
 
 
 class CamLocDataset:
-    """Sequence-style dataset: raw RGB + pose + focal + the labels asked for."""
+    """Sequence-style dataset: raw RGB + pose + focal + the labels asked for.
+    `decoder` is "native" or "PIL", the image decoder its items go through;
+    `fallbacks` counts the image reads the native decoder failed and PIL did
+    (the first is printed on the console)."""
 
     def __init__(self, root_dir: Union[str, Sequence[str]], mode: int = 1, sparse: bool = True,
                  coord: bool = True, depth: bool = False, normal: bool = False,
@@ -121,6 +154,9 @@ class CamLocDataset:
         self.grayscale = grayscale and not raw_image  # applied on the device, not here
         self.raw_image = raw_image
         self.image_height = image_height
+        self.decoder = "native" if native.available() else "PIL"
+        self.fallbacks = 0
+        self._fallback_lock = threading.Lock()
         labelled = mode == 1 and sparse
         self.want = {"coord": coord and labelled, "depth": depth and labelled,
                      "normal": normal and labelled, "semantics": semantics and labelled}
@@ -152,7 +188,8 @@ class CamLocDataset:
         return len(self.rgb_files)
 
     def __getitem__(self, idx: int) -> CamLocItem:
-        img, f_scale = _load_image_resized(self.rgb_files[idx], self.image_height)
+        img, f_scale = _load_image_resized(self.rgb_files[idx], self.image_height,
+                                           self._fallback)
         focal = float(np.loadtxt(self.calib_files[idx])) * f_scale
         pose = np.loadtxt(self.pose_files[idx]).astype(np.float32)
         item = CamLocItem(image=img, pose=pose, focal=focal, file_name=self.rgb_files[idx])
@@ -169,6 +206,14 @@ class CamLocDataset:
         elif self.mode == 1:
             item.coord = self._dense_coords_from_depth(idx, img, pose, focal)
         return item
+
+    def _fallback(self, path: str) -> None:
+        with self._fallback_lock:
+            self.fallbacks += 1
+            first = self.fallbacks == 1
+        if first:
+            print(f"Image decoder: PIL for {path} (the native decoder cannot read it)",
+                  flush=True)
 
     def _dense_coords_from_depth(self, idx, img, pose, focal) -> np.ndarray:
         """Scene coordinates by back-projecting a depth PNG (millimetres)

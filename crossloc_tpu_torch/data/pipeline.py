@@ -13,9 +13,6 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
-_DECODE_THREADS = 4
-_PREFETCH_BATCHES = 2
-
 
 def images_to_wire(images: np.ndarray) -> np.ndarray:
     """[0, 1] float32 images -> uint8 on the k/255 grid, saturating: values
@@ -65,22 +62,31 @@ def device_prefetch(iterator: Iterable[dict], device, size: int = 2,
 
 
 class Loader:
-    """Iterates over host batches; a thread pool decodes batches ahead of the
-    consumer.
+    """Iterates over host batches; a pool of `num_workers` threads decodes
+    batches ahead of the consumer, at most `prefetch` of them waiting.
 
     By default in dataset order with the last batch short (evaluation). With
     `shuffle`, the order of epoch E is `np.random.default_rng([seed, E])`'s
     permutation, so a resumed run sees the data of an uninterrupted one;
     `set_epoch(E)` before iterating, else each pass advances the epoch. A
     `shard` (rank, world) reads idx[rank::world] cut to len // world, the
-    same count on every rank. `drop_last` drops a short last batch."""
+    same count on every rank. `drop_last` drops a short last batch.
+
+    `num_workers` and `prefetch` keep the JAX package's `Loader` signature;
+    every caller takes their defaults (4, 2), and no CLI or tool flag sets
+    them."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 2021,
-                 drop_last: bool = False, shard: Tuple[int, int] = (0, 1)):
+                 num_workers: int = 4, prefetch: int = 2, drop_last: bool = False,
+                 shard: Tuple[int, int] = (0, 1)):
+        if num_workers < 1 or prefetch < 1:
+            raise ValueError(f"num_workers={num_workers} and prefetch={prefetch} must be >= 1")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.num_workers = num_workers
+        self.prefetch = prefetch
         self.drop_last = drop_last
         rank, world = shard
         if not 0 <= rank < world:
@@ -111,11 +117,11 @@ class Loader:
     def __iter__(self) -> Iterator[dict]:
         batches = self.index_batches()
         self._epoch += 1
-        q: "queue.Queue" = queue.Queue(maxsize=_PREFETCH_BATCHES)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
         def producer():
-            with ThreadPoolExecutor(_DECODE_THREADS) as pool:
+            with ThreadPoolExecutor(self.num_workers) as pool:
                 futures = [pool.submit(self.dataset.collate, b) for b in batches]
                 for f in futures:
                     if stop.is_set():

@@ -354,6 +354,22 @@ def _unpack_vec3(arr, i):
     return (arr[..., i, 0], arr[..., i, 1], arr[..., i, 2])
 
 
+def p3p_lambdatwist(X, y):
+    """All P3P poses of one minimal problem per batch entry: world points X
+    [..., 3, 3] (row i is point i), unit bearings y [..., 3, 3] ->
+    (R [..., 4, 3, 3], t [..., 4, 3], valid [..., 4]), the four Lambda
+    Twist candidates with x_cam = R x_world + t."""
+    X = grad_firewall(X)
+    y = grad_firewall(y)
+    cands = _p3p_soa(*(_unpack_vec3(X, i) for i in range(3)),
+                     *(_unpack_vec3(y, i) for i in range(3)))
+    R = torch.stack([torch.stack(c[0], dim=-1).reshape(c[0][0].shape + (3, 3)) for c in cands],
+                    dim=-3)
+    t = torch.stack([torch.stack(c[1], dim=-1) for c in cands], dim=-2)
+    valid = torch.stack([c[2] for c in cands], dim=-1)
+    return R, t, valid
+
+
 def bearings_from_pixels(pixels, cam_mat):
     """Unit bearing vectors from pixel coords. [..., N, 2] -> [..., N, 3]."""
     f = cam_mat[..., 0, 0]

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from .camera import _apply
+
 _EPS = 1e-12
 
 
@@ -84,12 +86,23 @@ def pose_vec_to_w2c(pose6):
     return torch.cat([top, _bottom_row(top)], dim=-2)
 
 
+def w2c_to_pose_vec(T):
+    """[..., 4, 4] world-to-cam matrix -> [..., 6] scene pose (rvec, tvec)."""
+    return torch.cat([inverse_rodrigues(T[..., 0:3, 0:3]), T[..., 0:3, 3]], dim=-1)
+
+
 def invert_se3(T):
     """Invert a rigid 4x4 transform analytically."""
     Rt = T[..., 0:3, 0:3].transpose(-1, -2)
     t_inv = -(Rt @ T[..., 0:3, 3:4])
     top = torch.cat([Rt, t_inv], dim=-1)
     return torch.cat([top, _bottom_row(top)], dim=-2)
+
+
+def transform_points(T, pts):
+    """[..., 4, 4] (or [..., 3, 4]) rigid transform applied to [..., N, 3]
+    points, as elementwise products and sums (no TF32)."""
+    return _apply(T[..., 0:3, 0:3], pts) + T[..., None, 0:3, 3]
 
 
 def rotation_angle_deg(R1, R2):
@@ -103,3 +116,12 @@ def rotation_angle_deg(R1, R2):
     sz = Rrel[..., 1, 0] - Rrel[..., 0, 1]
     sin_t = 0.5 * torch.sqrt(sx * sx + sy * sy + sz * sz)
     return torch.atan2(sin_t, cos_t) * (180.0 / math.pi)
+
+
+def orthonormalize(R, iters: int = 2):
+    """Newton's iteration toward SO(3), R <- 1.5 R - 0.5 R R^T R, on
+    [..., 3, 3]: P3P's pose clean-up (`p3p._orthonormalize9`) on matrices."""
+    from .p3p import _orthonormalize9
+
+    out = _orthonormalize9(tuple(R[..., i, j] for i in range(3) for j in range(3)), iters)
+    return torch.stack(out, dim=-1).reshape(R.shape)

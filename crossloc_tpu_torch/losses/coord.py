@@ -12,7 +12,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from ..geometry import invert_se3, pixel_grid
+from ..geometry import invert_se3, pixel_grid, project, transform_points
 from .common import reduce_loss, valid_label_mask
 
 
@@ -25,12 +25,6 @@ class CoordLossConfig(NamedTuple):
     init_tolerance: float = 50.0  # m: regression-error validity threshold
     nodata_value: float = -1.0
     subsample: int = 8
-
-
-def _apply(mat, pts):
-    """mat [..., 3, 3] applied to points [..., N, 3] -> [..., N, 3], in f32
-    products and sums (no matmul, so no TF32)."""
-    return (mat[..., None, :, :] * pts[..., :, None, :]).sum(-1)
 
 
 def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_map=None,
@@ -51,14 +45,13 @@ def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_ma
     gt = gt_coords.reshape(B, N, 3).float()
 
     w2c = invert_se3(gt_poses.float())[:, 0:3, :]  # [B, 3, 4]
-    cam_pred = _apply(w2c[..., 0:3], pred) + w2c[:, None, :, 3]
-    cam_gt = _apply(w2c[..., 0:3], gt) + w2c[:, None, :, 3]
+    cam_pred = transform_points(w2c, pred)
+    cam_gt = transform_points(w2c, gt)
     reg_error = torch.linalg.vector_norm(cam_pred - cam_gt, dim=-1)  # [B, N]
 
     grid = pixel_grid(H, W, config.subsample, device=pred.device).reshape(N, 2)
-    proj = _apply(cam_mat.float(), cam_pred)
-    z = torch.clamp(proj[..., 2:3], min=config.min_depth)
-    repro = torch.clamp(torch.linalg.vector_norm(proj[..., 0:2] / z - grid, dim=-1), min=1e-7)
+    pix = project(cam_pred, cam_mat.float(), min_depth=config.min_depth)
+    repro = torch.clamp(torch.linalg.vector_norm(pix - grid, dim=-1), min=1e-7)
 
     valid_gt = valid_label_mask(gt, config.nodata_value)  # [B, N]
     invalid_min_depth = cam_pred[..., 2] < config.min_depth
