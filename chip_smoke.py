@@ -75,6 +75,24 @@ Phases:
            (f) the hypothesis-sharded solver on 2 ranks against solve_batch;
            (g) data-parallel eval over [cuda:0, cuda:0]; the step times
            (two ranks on one card, not a scaling figure);
+  spatial  the mesh's spatial and model axes, full-width coord + MLE net at
+           480x720, f32, TF32 off: (1) the four cross-shard GroupNorm entries
+           (K1-shard-stats, -apply, K1-bwd-shard-sums, -apply) at every
+           Conv->GN input of the net, B=4, split into 2 and 4 row blocks, each
+           against its plain twin and the blocks merged against the plain K1
+           twin on the whole image, forward and backward, timed at 2 blocks
+           beside the bytes bound, the split design's own traffic and the
+           unsharded K1 on the whole image; (2) two ranks sharing the card
+           over gloo, spatial 2, global B=4: the forward and one step's loss
+           and gradient
+           against one process (the parallel phase's tolerance), each
+           rank's own cross-shard launches per step, two steps' walls, and a
+           third step traced on each rank (its kernels' and copies' device
+           time beside its wall); (3)
+           `dryrun_multichip(4, "cuda")`: (data 2 x spatial 2), then (data 2
+           x model 2), four ranks on the card; (4) the walls per global step
+           beside the card's name and power limit (ranks sharing one card:
+           not a scaling figure);
   loader   the host data path: the host's headers, libraries and cores; the
            native image decoder built (g++) and held against PIL on 480x720
            frames of the plane scene (the same bits; resized to 240 rows
@@ -194,6 +212,14 @@ FT_PATH_SHAPES = [
     (512, 60, 90, False, 4, 2),    # towers' res2_skip, mlr_skip
     (1536, 60, 90, False, 1, 1),   # mlr_norm
 ]
+
+# the spatial phase: the global batch of its 2-rank step, the cross-shard
+# entries by their names in the kernels line, and the blocks whose statistics
+# one rank's apply reads (spatial 2)
+SPATIAL_BATCH = 4
+SHARD_ENTRIES = ("groupnorm_shard_stats", "groupnorm_shard_apply",
+                 "groupnorm_shard_backward_sums", "groupnorm_shard_backward_apply")
+S_GATHER = 2
 
 
 def log(msg: str) -> None:
@@ -2145,6 +2171,266 @@ class Smoke:
                            launches_per_rank=dict(dp=fwd_a, bwd=bwd_a)), f, indent=1)
         shutil.rmtree(work, ignore_errors=True)
 
+    # -- the mesh's spatial and model axes -------------------------------------
+    def phase_spatial(self):
+        """The cross-shard kernels against their twins at the net's shapes,
+        the 2-rank spatial step against one process, and the dry run on four
+        ranks (module docstring)."""
+        import torch
+
+        from crossloc_tpu_torch import data
+        from crossloc_tpu_torch.tools import parallel_check as pc
+        from crossloc_tpu_torch.tools.multichip import dryrun_multichip
+
+        B, smi = SPATIAL_BATCH, nvidia_smi_line()
+        self._shard_kernels(B)
+
+        # (2) two ranks, spatial 2, against one process
+        work = WORK_DIR + "_spatial"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        data.write_fake_dataset(os.path.join(datasets, "urbanscape", "train_sim"), n=B,
+                                img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=0, scene="plane")
+        batch = self._train_batch(datasets, B, "cpu")
+        spec = dict(state_dict=self._model("cpu").state_dict(),
+                    batch=dict(images=batch.images, poses=batch.poses, labels=batch.labels,
+                               focal=batch.focal, pp_shift=batch.pp_shift),
+                    kind="coord", uncertainty="MLE",
+                    mean=list(data.get_label_mean("urbanscape", "coord")), tiny=False,
+                    zero=False, steps=3, lr=2e-4, device="cuda", mesh=dict(data=1, spatial=2),
+                    profile=True)  # the third step traced on each rank
+        out = os.path.join(work, "step.pt")
+        t0 = time.perf_counter()
+        pc.run_ranks(pc.step_check, 2, (spec, out), device="cuda", timeout=300, threads=4)
+        log(f"(2) two ranks of one group (spatial 2): {time.perf_counter() - t0:.1f} s")
+        sp = torch.load(out, weights_only=False)
+        one = dict(spec, mesh=None, steps=0, profile=False)
+        ref1, ref2 = pc.step_check(dict(one, steps=1)), pc.step_check(one)
+        halves = [pc.step_check(dict(one, batch={k: (v[s] if v.dim() and k in (
+            "images", "poses", "labels") else v) for k, v in spec["batch"].items()}))
+            for s in (slice(0, B // 2), slice(B // 2, B))]
+        split = {n: (halves[0]["grads"][n] + halves[1]["grads"][n]) / 2 for n in ref1["grads"]}
+
+        def dist_max(a, b):
+            return max(float((a[n].double() - b[n].double()).abs().max()) for n in a)
+
+        gmax = max(float(g.abs().max()) for g in ref1["grads"].values())
+        spread = max(dist_max(ref1["grads"], ref2["grads"]), dist_max(ref1["grads"], split))
+        tol = max(2 * spread, 1e-6 * gmax)
+        err = dist_max(sp["grads"], ref1["grads"])
+        pmax = float(ref1["preds"].abs().max())
+        fwd_err = float((sp["preds"] - ref1["preds"]).abs().max())
+        first = ref1["loss"][0]
+        d_loss = abs(sp["loss"][0] - first) / abs(first)
+        ranks = sp["by_rank"]  # each rank's own counts, per step
+        counts = [[dict(zip(SHARD_ENTRIES, c)) for c in r["shard_launches"]] for r in ranks]
+        self.launches["spatial"] = {n: sum(c[i] for r in ranks for c in r["shard_launches"])
+                                    for i, n in enumerate(SHARD_ENTRIES)}
+        walls = sp["step_ms"][:-1]  # the traced step's wall is the profile's
+        prof = [r["profile"] for r in ranks]
+        log(f"(2) spatial 2, global B={B} at {IMG_H}x{IMG_W}: forward max |diff| {fwd_err:.3e} "
+            f"against one process (limit {1e-4 * pmax:.3e} = 1e-4 of max |pred|); gradient max "
+            f"|diff| {err:.3e} (limit {tol:.3e} = 2 x the spread of single-process gradients: "
+            f"{dist_max(ref1['grads'], ref2['grads']):.3e} between two runs, "
+            f"{dist_max(ref1['grads'], split):.3e} against the two halves; max |g| {gmax:.3e}); "
+            f"first step's loss {sp['loss'][0]:.6f} against {first:.6f} (relative {d_loss:.2e}, "
+            f"limit 1e-5); launches per step, each rank's own: cross-shard "
+            f"{[r['shard_launches'] for r in ranks]}, K1 / K1-bwd "
+            f"{[r['launches'] for r in ranks]}; backend {sp['backend']}")
+        if fwd_err > 1e-4 * pmax or err > tol or d_loss > 1e-5:
+            raise AssertionError("the spatial step disagrees with one process")
+        if (any(n != 28 for r in counts for c in r for n in c.values())
+                or any(set(r["launches"]) != {(0, 0)} for r in ranks)):
+            raise AssertionError("the spatial step did not run 28 launches of each cross-shard "
+                                 "entry per step on every rank (and none of the unsharded K1)")
+        log(f"(2) the third step traced on each rank (torch.profiler, {smi}): " + "; ".join(
+            f"rank {i}: wall {p['wall_ms']:.2f} ms to the end of its device work, its kernels "
+            f"{p['kernel_ms']:.2f} ms ({p['kernels']} launches), its copies and memsets "
+            f"{p['copy_ms']:.2f} ms, the rest {p['wall_ms'] - p['kernel_ms'] - p['copy_ms']:.2f} "
+            f"ms" for i, p in enumerate(prof)))
+
+        # (3) the dry run on four ranks of the card
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(4, "cuda", timeout=300)
+        log(f"(3) dryrun_multichip(4, 'cuda') in {time.perf_counter() - t0:.1f} s: " + json.dumps(
+            {k: v for k, v in dry.items() if k != "device"}))
+
+        log(f"(4) walls per global step, ranks sharing one card over gloo, not a scaling figure "
+            f"({smi}): spatial 2 at B={B} {IMG_H}x{IMG_W}, rank 0's step from its start to its "
+            f"loss: {', '.join(f'{t:.2f}' for t in walls)} ms; dry run (full net, "
+            f"64x96, B=4, one step each, the first): data 2 x spatial 2 "
+            f"{dry['spatial_step_ms']:.2f} ms, data 2 x model 2 {dry['model_step_ms']:.2f} ms")
+        with open(os.path.join(self.out_dir, "spatial.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=smi, note="ranks sharing one card, not "
+                           "a scaling figure", batch=B, step_ms=walls, profile=prof,
+                           grad_err=err, grad_tol=tol, grad_spread=spread, grad_max=gmax,
+                           forward_err=fwd_err, loss=sp["loss"], loss_one_process=first,
+                           launches_by_rank_step=counts, dryrun=dry), f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _shard_kernels(self, B):
+        """(1) of the spatial phase: the four cross-shard entries at each
+        Conv->GN input of the coord net at 480x720 (f32), split into 2 and 4
+        row blocks; each entry against its twin on the same inputs, the
+        blocks merged against the plain K1 twin on the whole image; at 2
+        blocks each entry timed (device time, L2 evicted) beside its twin,
+        its bytes bound, the split design's own traffic and the unsharded
+        K1 (planned design) on the whole image."""
+        import torch
+
+        from crossloc_tpu_torch import ops
+
+        flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
+        flush = flush_buf.zero_
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        worst = {n: 0.0 for n in SHARD_ENTRIES}
+        rows = []
+        for C, H, W, relu, count in GN_PATH_SHAPES:
+            G = min(32, C)
+            x = torch.randn(B, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0
+            s = torch.rand(C, device="cuda", generator=gen) + 0.5
+            b = torch.randn(C, device="cuda", generator=gen)
+            # dy is zero where the plain pre-activation lies within 1e-3 of the
+            # ReLU's kink: the merged statistics round in another order than the
+            # whole image's, which may flip the mask of such a cell
+            pre = ops.group_norm_relu_plain(x, s, b, G, 1e-5, False)
+            dy = torch.randn(B, H, W, C, device="cuda", generator=gen) * (pre.abs() > 1e-3)
+            del pre
+            whole = ops.group_norm_relu_plain(x, s, b, G, 1e-5, relu)
+            dx_w, ds_w, db_w = ops.group_norm_relu_backward_plain(x, s, b, dy, G, 1e-5, relu)
+            for S in (2, 4):
+                xs = [t.contiguous() for t in x.chunk(S, 1)]
+                dys = [t.contiguous() for t in dy.chunk(S, 1)]
+                st = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
+                st_p = torch.stack([ops.group_norm_shard_stats_plain(t, G) for t in xs])
+                # mean and variance of each block: O(1) numbers beside the M2 sums
+                e_st = float(torch.cat([(st[..., 1] - st_p[..., 1]).abs(),
+                                        (st[..., 2] / st[..., 0] - st_p[..., 2] / st_p[..., 0])
+                                        .abs()]).max())
+                ys, stats, e_y = [], [], 0.0
+                for t in xs:
+                    y, so = ops.group_norm_shard_apply(t, s, b, st, G, 1e-5, relu)
+                    yp, _ = ops.group_norm_shard_apply_plain(t, s, b, st, G, 1e-5, relu)
+                    e_y = max(e_y, float((y - yp).abs().max()))
+                    ys.append(y)
+                    stats.append(so)
+                e_whole = float((torch.cat(ys, 1) - whole).abs().max())
+                sums = torch.stack([ops.group_norm_shard_backward_sums(t, s, b, so, d, G, relu)
+                                    for t, so, d in zip(xs, stats, dys)])
+                sums_p = torch.stack([ops.group_norm_shard_backward_sums_plain(
+                    t, s, b, so, d, G, relu) for t, so, d in zip(xs, stats, dys)])
+                e_sums = float((sums - sums_p).abs().max())
+                smax = float(sums_p.abs().max())
+                dxs, ds, db, e_dx = [], 0, 0, 0.0
+                for i, (t, so, d) in enumerate(zip(xs, stats, dys)):
+                    got = ops.group_norm_shard_backward_apply(t, s, b, so, d, sums, i, G, H * W,
+                                                              relu)
+                    ref = ops.group_norm_shard_backward_apply_plain(t, s, b, so, d, sums, i, G,
+                                                                    H * W, relu)
+                    e_dx = max(e_dx, float((got[0] - ref[0]).abs().max()))
+                    dxs.append(got[0])
+                    ds, db = ds + got[1], db + got[2]
+                e_dx_whole = float((torch.cat(dxs, 1) - dx_w).abs().max())
+                e_dsb = max(float((ds - ds_w).abs().max()) / float(ds_w.abs().max()),
+                            float((db - db_w).abs().max()) / float(db_w.abs().max()))
+                dxmax = float(dx_w.abs().max())
+                torch.cuda.synchronize()
+                for n, e in zip(SHARD_ENTRIES, (e_st, e_y, e_sums, e_dx)):
+                    worst[n] = max(worst[n], e)
+                ok = (e_st <= 1e-4 and e_y <= 1e-4 and e_whole <= 1e-4 and e_sums <= 1e-4 * smax
+                      and e_dx <= 1e-4 * dxmax and e_dx_whole <= 1e-4 * dxmax and e_dsb <= 1e-4)
+                log(f"  cross-shard C={C} {H}x{W} B={B} relu={relu}, {S} blocks: stats "
+                    f"{e_st:.2e} (mean, var), apply {e_y:.2e}, merged against the whole image "
+                    f"{e_whole:.2e} (limits 1e-4); bwd sums {e_sums:.2e} (limit 1e-4 x "
+                    f"{smax:.3g}), bwd apply dx {e_dx:.2e}, merged dx {e_dx_whole:.2e} (limits "
+                    f"1e-4 x {dxmax:.3g}), dscale/dbias relative {e_dsb:.2e} (limit 1e-4) "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"cross-shard entries disagree at C={C} {H}x{W} {S} "
+                                         f"blocks relu={relu}")
+            # timing at 2 blocks: one block's calls, as one rank of spatial 2 runs them
+            xs = [t.contiguous() for t in x.chunk(2, 1)]
+            d0 = dy.chunk(2, 1)[0].contiguous()
+            st = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
+            _, so = ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu)
+            sums = torch.stack([ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu)]
+                               * 2)
+            calls = [
+                (lambda: ops.group_norm_shard_stats(xs[0], G),
+                 lambda: ops.group_norm_shard_stats_plain(xs[0], G)),
+                (lambda: ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu),
+                 lambda: ops.group_norm_shard_apply_plain(xs[0], s, b, st, G, 1e-5, relu)),
+                (lambda: ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu),
+                 lambda: ops.group_norm_shard_backward_sums_plain(xs[0], s, b, so, d0, G, relu)),
+                (lambda: ops.group_norm_shard_backward_apply(xs[0], s, b, so, d0, sums, 0, G,
+                                                             H * W, relu),
+                 lambda: ops.group_norm_shard_backward_apply_plain(xs[0], s, b, so, d0, sums, 0,
+                                                                   G, H * W, relu))]
+            kern = device_ms([c[0] for c in calls], flush)
+            plain = device_ms([c[1] for c in calls], flush, n=5)
+            k1_whole = device_ms([lambda: ops.group_norm_relu(x, s, b, G, 1e-5, relu)], flush)[0]
+            # the one library call that computes an entry's function: the stats'
+            # per-(image, group) mean and variance (M2 is variance x count)
+            lib_stats = device_ms([lambda: torch.var_mean(
+                xs[0].view(B, H // 2 * W, G, C // G), dim=(1, 3), correction=0)], flush)[0]
+            n_el, item = xs[0].numel(), 4
+            # each entry's least traffic: what it must read and write once
+            moved = [n_el * item + B * G * 3 * 4,
+                     2 * n_el * item + S_GATHER * B * G * 3 * 4 + 2 * C * 4,
+                     2 * n_el * item + B * 2 * C * 4,
+                     3 * n_el * item + S_GATHER * B * 2 * C * 4 + 2 * C * 4]
+            ops_per = [4, 6, 8, 10]  # fp32 operations per element of x
+            bound = [1e3 * max(m / HBM_BYTES_PER_S, o * n_el / FP32_FLOPS)
+                     for m, o in zip(moved, ops_per)]
+            row = dict(C=C, H=H // 2, W=W, B=B, relu=relu, per_forward=count,
+                       ms=dict(zip(SHARD_ENTRIES, kern)), plain_ms=dict(zip(SHARD_ENTRIES, plain)),
+                       bound_ms=dict(zip(SHARD_ENTRIES, bound)),
+                       fwd_bound_ms=1e3 * 2 * n_el * item / HBM_BYTES_PER_S,
+                       fwd_split_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
+                       bwd_bound_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
+                       bwd_split_ms=1e3 * 5 * n_el * item / HBM_BYTES_PER_S,
+                       k1_whole_ms=k1_whole, library_stats_ms=lib_stats)
+            rows.append(row)
+            log(f"  cross-shard time C={C} {H // 2}x{W} (a block of {H}) B={B} relu={relu}: "
+                + ", ".join(f"{n} {kern[i]:.4f} ms (plain {plain[i]:.4f}, bound {bound[i]:.4f})"
+                            for i, n in enumerate(SHARD_ENTRIES))
+                + f"; forward pair {kern[0] + kern[1]:.4f} ms against one read of x and one "
+                f"write of y {row['fwd_bound_ms']:.4f} ms and the split design's two reads "
+                f"{row['fwd_split_ms']:.4f} ms; backward pair {kern[2] + kern[3]:.4f} ms against "
+                f"{row['bwd_bound_ms']:.4f} / {row['bwd_split_ms']:.4f} ms; unsharded K1 on the "
+                f"whole image {k1_whole:.4f} ms; torch.var_mean on the block {lib_stats:.4f} ms")
+            del x, dy, whole, dx_w
+        tot = {k: {n: sum(r["per_forward"] * r[k][n] for r in rows) for n in SHARD_ENTRIES}
+               for k in ("ms", "plain_ms", "bound_ms")}
+        pair = {k: sum(r["per_forward"] * r[k] for r in rows)
+                for k in ("fwd_bound_ms", "fwd_split_ms", "bwd_bound_ms", "bwd_split_ms",
+                          "k1_whole_ms", "library_stats_ms")}
+        log(f"cross-shard entries over one f32 forward and backward's 28 calls of one rank of "
+            f"spatial 2 (B={B}, a 240x720 block of 480x720), device time: "
+            + ", ".join(f"{n} {tot['ms'][n]:.4f} ms (plain {tot['plain_ms'][n]:.4f}, bound "
+                        f"{tot['bound_ms'][n]:.4f})" for n in SHARD_ENTRIES)
+            + f"; forward pair {tot['ms'][SHARD_ENTRIES[0]] + tot['ms'][SHARD_ENTRIES[1]]:.4f} ms "
+            f"against one read + one write {pair['fwd_bound_ms']:.4f} ms and the split's own "
+            f"traffic {pair['fwd_split_ms']:.4f} ms; backward pair "
+            f"{tot['ms'][SHARD_ENTRIES[2]] + tot['ms'][SHARD_ENTRIES[3]]:.4f} ms against "
+            f"{pair['bwd_bound_ms']:.4f} / {pair['bwd_split_ms']:.4f} ms; the unsharded K1 on "
+            f"the whole images {pair['k1_whole_ms']:.4f} ms; torch.var_mean in place of the "
+            f"stats {pair['library_stats_ms']:.4f} ms")
+        with open(os.path.join(self.out_dir, "k1_shard_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows,
+                           per_forward=tot, pairs=pair, worst=worst), f, indent=1)
+        sources = dict(zip(SHARD_ENTRIES, ["crossloc_tpu/ops/pallas_groupnorm.py:57"] * 2
+                           + ["crossloc_tpu/ops/pallas_groupnorm.py:141"] * 2))
+        # no single library call computes the apply or the backward entries
+        library = dict.fromkeys(SHARD_ENTRIES, None)
+        library[SHARD_ENTRIES[0]] = pair["library_stats_ms"]
+        for n in SHARD_ENTRIES:
+            self.kernels[n] = dict(
+                name=n, route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
+                replaces=sources[n], max_abs_err=worst[n], ms=tot["ms"][n],
+                plain_ms=tot["plain_ms"][n], library_ms=library[n], bound_ms=tot["bound_ms"][n],
+                bound_by="bytes")
+
     def _run_cli(self, main, work, args):
         """A training CLI's `main(args)` in process, in `work`, with the launch
         counts set to 0 just before it; (output dir, logged losses, K1 and
@@ -2856,7 +3142,7 @@ class Smoke:
 
 
 PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel",
-          "loader")
+          "spatial", "loader")
 EXTRA_PHASES = ("profile", "converge")
 
 

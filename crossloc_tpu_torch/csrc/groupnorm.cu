@@ -104,6 +104,10 @@
 // Neither uses float atomics: every sum has a fixed order, so dx, dgamma
 // and dbeta have the same bits from run to run.
 //
+// Cross-shard design, for the mesh's "spatial" axis (an image's rows split
+// over ranks): four entries whose statistics are exchanged between them; see
+// the section of that name below.
+//
 // Plain C interface (bound with ctypes). The caller allocates the outputs
 // and the scratch; each function launches on the given
 // stream, does not synchronise, and returns the first error (0 when every
@@ -250,12 +254,14 @@ __global__ void gn_stats_kernel(const T* __restrict__ x, float* __restrict__ par
 
 constexpr int kFinalizeThreads = 256;
 
-__global__ void gn_finalize_kernel(const float* __restrict__ part, const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, float* __restrict__ affine,
-                                   float* __restrict__ stats, int HW, int C, int G, int chunk_rows,
-                                   int nchunks, float eps) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
+// Block-wide Chan merge of image b's chunk x channel Welford partials over
+// the channels of group g (blockDim.x == kFinalizeThreads): every thread
+// gets the group's (count, mean, M2). The merge order is fixed, so the
+// result has the same bits from run to run.
+__device__ __forceinline__ void merge_group_partials(const float* __restrict__ part, int b, int g,
+                                                     int HW, int C, int G, int chunk_rows,
+                                                     int nchunks, float& n_out, float& mean_out,
+                                                     float& m2_out) {
   const int gs = C / G;
   const int total = nchunks * gs;
   float n = 0.f, mean = 0.f, m2 = 0.f;
@@ -268,7 +274,6 @@ __global__ void gn_finalize_kernel(const float* __restrict__ part, const float* 
   }
 
   __shared__ float sn[kFinalizeThreads], smean[kFinalizeThreads], sm2[kFinalizeThreads];
-  __shared__ float s_mu, s_rstd;
   const int tid = threadIdx.x;
   sn[tid] = n;
   smean[tid] = mean;
@@ -284,9 +289,26 @@ __global__ void gn_finalize_kernel(const float* __restrict__ part, const float* 
     }
     __syncthreads();
   }
+  n_out = sn[0];
+  mean_out = smean[0];
+  m2_out = sm2[0];
+}
+
+__global__ void gn_finalize_kernel(const float* __restrict__ part, const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, float* __restrict__ affine,
+                                   float* __restrict__ stats, int HW, int C, int G, int chunk_rows,
+                                   int nchunks, float eps) {
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int gs = C / G;
+  const int tid = threadIdx.x;
+  float n, mean, m2;
+  merge_group_partials(part, b, g, HW, C, G, chunk_rows, nchunks, n, mean, m2);
+
+  __shared__ float s_mu, s_rstd;
   if (tid == 0) {
-    const float var = fmaxf(sm2[0] / sn[0], 0.f);
-    s_mu = smean[0];
+    const float var = fmaxf(m2 / n, 0.f);
+    s_mu = mean;
     s_rstd = rsqrtf(var + eps);
     if (stats != nullptr) {
       stats[((size_t)b * G + g) * 2] = s_mu;
@@ -1236,6 +1258,185 @@ int launch_cluster_backward(const void* x, const void* dy, const float* gamma, c
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Cross-shard design (the mesh's "spatial" axis, parallel/spatial.py)
+// ---------------------------------------------------------------------------
+//
+// On a height shard an image's rows are split over the ranks of a spatial
+// group, so a norm's per-(image, group) statistics, and its backward's
+// per-(image, channel) sums, span ranks. Neither unsharded design can take
+// that: the cluster designs compute and apply in one launch, and the
+// three-pass and four-kernel designs merge only the chunks of their own
+// tensor. So the work splits at the exchange, into four entries, each a
+// launch sequence on the caller's stream; parallel/spatial.py all-gathers
+// over the spatial group between them:
+//   K1-shard-stats      gn_stats_kernel's per-chunk Welford partials, then
+//                       gn_shard_stats_kernel merges each (image, group)'s
+//                       chunk x channel partials (Chan) into (count, mean,
+//                       M2): B * G * 3 floats to exchange, not the partials.
+//   K1-shard-apply      gn_shard_merge_kernel merges the ranks' (count, mean,
+//                       M2) with Chan's formula in rank order, so every rank
+//                       gets the same bits, clamps var at 0, writes (mu,
+//                       rstd) to `stats` for the backward and the affine of
+//                       gn_apply_kernel, which writes y.
+//   K1-bwd-shard-sums   gnb_partials_kernel and gnb_image_sums_kernel: per
+//                       (image, channel), the sums of gh and gh * xhat over
+//                       the shard's rows.
+//   K1-bwd-shard-apply  gnb_shard_sums_kernel adds the ranks' sums in rank
+//                       order; gnb_batch_sums_kernel gives dgamma and dbeta
+//                       from this shard's own sums (the training step's
+//                       all-reduce over the ranks adds the shards);
+//                       gnb_finalize_kernel with the image's whole H*W as
+//                       the count (its dgamma row of blocks not launched);
+//                       gnb_apply_kernel writes dx.
+// Bound: bytes, as the unsharded designs. Each direction reads x (and dy)
+// twice, once for the statistics and once for the apply: one read more
+// than the bound, the price of applying only after the exchange.
+
+// One block per (group, image): the chunk x channel Welford partials of
+// the group merged into out[b, g] = (count, mean, M2).
+__global__ void gn_shard_stats_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                      int HW, int C, int G, int chunk_rows, int nchunks) {
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  float n, mean, m2;
+  merge_group_partials(part, b, g, HW, C, G, chunk_rows, nchunks, n, mean, m2);
+  if (threadIdx.x == 0) {
+    float* o = out + ((size_t)b * G + g) * 3;
+    o[0] = n;
+    o[1] = mean;
+    o[2] = m2;
+  }
+}
+
+// One warp per (group, image): gathered [S, B, G, 3] merged in rank order,
+// then (mu, rstd) to stats [B, G, 2] and the affine [B, 3, C] of
+// gn_apply_kernel (gamma * rstd, mu, beta).
+__global__ void gn_shard_merge_kernel(const float* __restrict__ gathered,
+                                      const float* __restrict__ gamma,
+                                      const float* __restrict__ beta, float* __restrict__ affine,
+                                      float* __restrict__ stats, int S, int B, int C, int G,
+                                      float eps) {
+  const int g = blockIdx.x;
+  const int b = blockIdx.y;
+  const int gs = C / G;
+  __shared__ float s_mu, s_rstd;
+  if (threadIdx.x == 0) {
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* p = gathered + (((size_t)s * B + b) * G + g) * 3;
+      chan_merge(n, mean, m2, p[0], p[1], p[2]);
+    }
+    const float var = fmaxf(m2 / n, 0.f);
+    s_mu = mean;
+    s_rstd = rsqrtf(var + eps);
+    stats[((size_t)b * G + g) * 2] = s_mu;
+    stats[((size_t)b * G + g) * 2 + 1] = s_rstd;
+  }
+  __syncthreads();
+  float* a_out = affine + (size_t)b * 3 * C;
+  for (int k = threadIdx.x; k < gs; k += blockDim.x) {
+    const int c = g * gs + k;
+    a_out[c] = gamma[c] * s_rstd;
+    a_out[C + c] = s_mu;
+    a_out[2 * C + c] = beta[c];
+  }
+}
+
+// sums[i] = sum over the S ranks, in rank order, of gathered[s, i]; n = B * 2 * C.
+__global__ void gnb_shard_sums_kernel(const float* __restrict__ gathered,
+                                      float* __restrict__ sums, int S, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float t = 0.f;
+  for (int s = 0; s < S; ++s) t += gathered[(size_t)s * n + i];
+  sums[i] = t;
+}
+
+template <typename T>
+cudaError_t launch_shard_stats(const void* x, float* part, float* out, int B, int HW, int C,
+                               int G, int chunk_rows, int nchunks, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int tpr = C / V;
+  const int rpi = tpr >= 256 ? 1 : 256 / tpr;
+  const int threads = tpr * rpi;
+  const size_t shmem = rpi > 1 ? (size_t)threads * (2 * V + 1) * sizeof(float) : 0;
+  gn_stats_kernel<T><<<dim3(nchunks, B), threads, shmem, stream>>>(
+      static_cast<const T*>(x), part, HW, C, chunk_rows, nchunks);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gn_shard_stats_kernel<<<dim3(G, B), kFinalizeThreads, 0, stream>>>(part, out, HW, C, G,
+                                                                     chunk_rows, nchunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_shard_apply(const void* x, void* y, const float* gamma, const float* beta,
+                               const float* gathered, float* affine, float* stats, int S, int B,
+                               int HW, int C, int G, float eps, int relu, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  gn_shard_merge_kernel<<<dim3(G, B), 32, 0, stream>>>(gathered, gamma, beta, affine, stats, S,
+                                                       B, C, G, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int HWC = HW * C;
+  int blocks = (HWC / V + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  gn_apply_kernel<T><<<dim3(blocks, B), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), affine, HWC, C, relu);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_shard_backward_sums(const void* x, const void* dy, const float* gamma,
+                                       const float* beta, const float* stats, float* part,
+                                       float* sums, int B, int HW, int C, int G, int chunk_rows,
+                                       int nchunks, int relu, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int tpr = C / V;
+  const int rpi = tpr >= 256 ? 1 : 256 / tpr;
+  const int threads = tpr * rpi;
+  const size_t shmem = rpi > 1 ? (size_t)threads * 2 * V * sizeof(float) : 0;
+  gnb_partials_kernel<T><<<dim3(nchunks, B), threads, shmem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), gamma, beta, stats, part, HW, C, G,
+      chunk_rows, nchunks, relu);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gnb_image_sums_kernel<<<dim3((C + 31) / 32, B), dim3(32, kSumLanes), 0, stream>>>(
+      part, sums, C, nchunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_shard_backward_apply(const void* x, const void* dy, const float* gamma,
+                                        const float* beta, const float* stats,
+                                        const float* gathered, float* sums, float* table,
+                                        void* dx, float* dgamma, float* dbeta, int index, int S,
+                                        int B, int HW, int count_hw, int C, int G, int relu,
+                                        cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int n = B * 2 * C;
+  gnb_shard_sums_kernel<<<(n + 255) / 256, 256, 0, stream>>>(gathered, sums, S, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gnb_batch_sums_kernel<<<(C + 255) / 256, 256, 0, stream>>>(gathered + (size_t)index * n,
+                                                             dgamma, dbeta, B, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gnb_finalize_kernel<<<dim3(G, B), 32, 0, stream>>>(sums, gamma, beta, stats, table, dgamma,
+                                                     dbeta, B, count_hw, C, G);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int HWC = HW * C;
+  int blocks = (HWC / V + 255) / 256;
+  if (blocks > 4096) blocks = 4096;
+  gnb_apply_kernel<T><<<dim3(blocks, B), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), table, HWC, C,
+      relu);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int crossloc_gn_forward(const void* x, void* y, const float* gamma, const float* beta,
@@ -1293,6 +1494,59 @@ extern "C" int crossloc_gn_cluster_backward(const void* x, const void* dy, const
                  : launch_cluster_backward<float>(x, dy, gamma, beta, stats, dx, dgamma, dbeta,
                                                   sums, B, HW, C, G, cb, cluster, rows_per_cta,
                                                   box_rows, nbox, threads, smem, relu, s);
+}
+
+extern "C" int crossloc_gn_shard_stats(const void* x, float* part, float* out, int B, int HW,
+                                       int C, int G, int chunk_rows, int nchunks, int is_bf16,
+                                       void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_bf16 ? launch_shard_stats<__nv_bfloat16>(x, part, out, B, HW, C, G, chunk_rows, nchunks,
+                                                  s)
+              : launch_shard_stats<float>(x, part, out, B, HW, C, G, chunk_rows, nchunks, s));
+}
+
+extern "C" int crossloc_gn_shard_apply(const void* x, void* y, const float* gamma,
+                                       const float* beta, const float* gathered, float* affine,
+                                       float* stats, int S, int B, int HW, int C, int G,
+                                       float eps, int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_bf16 ? launch_shard_apply<__nv_bfloat16>(x, y, gamma, beta, gathered, affine, stats, S,
+                                                  B, HW, C, G, eps, relu, s)
+              : launch_shard_apply<float>(x, y, gamma, beta, gathered, affine, stats, S, B, HW,
+                                          C, G, eps, relu, s));
+}
+
+extern "C" int crossloc_gn_shard_backward_sums(const void* x, const void* dy, const float* gamma,
+                                               const float* beta, const float* stats,
+                                               float* part, float* sums, int B, int HW, int C,
+                                               int G, int chunk_rows, int nchunks, int relu,
+                                               int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_bf16 ? launch_shard_backward_sums<__nv_bfloat16>(x, dy, gamma, beta, stats, part, sums,
+                                                          B, HW, C, G, chunk_rows, nchunks,
+                                                          relu, s)
+              : launch_shard_backward_sums<float>(x, dy, gamma, beta, stats, part, sums, B, HW,
+                                                  C, G, chunk_rows, nchunks, relu, s));
+}
+
+extern "C" int crossloc_gn_shard_backward_apply(const void* x, const void* dy,
+                                                const float* gamma, const float* beta,
+                                                const float* stats, const float* gathered,
+                                                float* sums, float* table, void* dx,
+                                                float* dgamma, float* dbeta, int index, int S,
+                                                int B, int HW, int count_hw, int C, int G,
+                                                int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      is_bf16 ? launch_shard_backward_apply<__nv_bfloat16>(x, dy, gamma, beta, stats, gathered,
+                                                           sums, table, dx, dgamma, dbeta, index,
+                                                           S, B, HW, count_hw, C, G, relu, s)
+              : launch_shard_backward_apply<float>(x, dy, gamma, beta, stats, gathered, sums,
+                                                   table, dx, dgamma, dbeta, index, S, B, HW,
+                                                   count_hw, C, G, relu, s));
 }
 
 extern "C" const char* crossloc_cuda_error_string(int err) {

@@ -16,11 +16,14 @@ def intrinsics(focal_length, width, height, dtype=torch.float32, device=None):
     return torch.stack([row0, row1, row2], dim=-2)
 
 
-def pixel_grid(out_h: int, out_w: int, subsample: int = 8, dtype=torch.float32, device=None):
+def pixel_grid(out_h: int, out_w: int, subsample: int = 8, dtype=torch.float32, device=None,
+               row_offset: int = 0):
     """Pixel centres of the subsampled prediction grid, [out_h, out_w, 2] (x, y),
-    with the x * subsample + subsample / 2 convention."""
+    with the x * subsample + subsample / 2 convention. `row_offset`: the
+    grid row of the first row, where the grid is a block of a taller
+    image's (a shard of the mesh's "spatial" axis)."""
     xs = torch.arange(out_w, dtype=dtype, device=device) * subsample + subsample / 2.0
-    ys = torch.arange(out_h, dtype=dtype, device=device) * subsample + subsample / 2.0
+    ys = (torch.arange(out_h, dtype=dtype, device=device) + row_offset) * subsample + subsample / 2.0
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     return torch.stack([gx, gy], dim=-1)
 

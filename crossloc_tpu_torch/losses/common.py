@@ -23,7 +23,10 @@ def valid_label_mask(labels, nodata_value):
 
 def reduce_loss(per_image_loss, num_pixels_instance, reduction):
     """'mean' -> scalar mean over every pixel of the batch; None -> [B]
-    per-instance means (the reference's reduction contract)."""
+    per-instance means (the reference's reduction contract). Over ranks the
+    mean of the ranks' means is the global batch's only because every rank
+    holds as many images and pixels: `parallel.shard_batch` splits N and the
+    rows evenly and refuses what does not split."""
     if reduction is None:
         return per_image_loss / num_pixels_instance
     if reduction == "mean":

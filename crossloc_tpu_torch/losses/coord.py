@@ -30,7 +30,8 @@ class CoordLossConfig(NamedTuple):
 def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_map=None,
                       config: CoordLossConfig = CoordLossConfig(),
                       reduction: Optional[str] = "mean",
-                      count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None):
+                      count_reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                      row_offset: int = 0):
     """(loss, valid_rate) of the coord task.
 
     scene_coords [B, H, W, 3] predicted world coordinates; gt_coords
@@ -38,7 +39,12 @@ def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_ma
     [3, 3] shared by the batch; uncertainty_map [B, H, W, 1] positive sigma
     or None. `reduction` "mean" gives a scalar, None a [B] vector. The
     `num_valid > 0` gate holds for the whole batch: under data parallelism
-    `count_reduce` sums the valid count over the ranks first."""
+    `count_reduce` sums the valid count over the ranks first (every rank,
+    spatial ones included). On a block of rows of a spatial mesh,
+    `row_offset` is the grid row of the block's first row and `cam_mat` the
+    whole image's camera; "mean" then divides by the block's pixels, which
+    is the step's share because every rank holds as many
+    (`parallel.shard_batch` checks the height)."""
     B, H, W, _ = scene_coords.shape
     N = H * W
     pred = scene_coords.reshape(B, N, 3).float()
@@ -49,7 +55,8 @@ def scene_coords_loss(scene_coords, gt_coords, gt_poses, cam_mat, uncertainty_ma
     cam_gt = transform_points(w2c, gt)
     reg_error = torch.linalg.vector_norm(cam_pred - cam_gt, dim=-1)  # [B, N]
 
-    grid = pixel_grid(H, W, config.subsample, device=pred.device).reshape(N, 2)
+    grid = pixel_grid(H, W, config.subsample, device=pred.device,
+                      row_offset=row_offset).reshape(N, 2)
     pix = project(cam_pred, cam_mat.float(), min_depth=config.min_depth)
     repro = torch.clamp(torch.linalg.vector_norm(pix - grid, dim=-1), min=1e-7)
 

@@ -6,6 +6,13 @@ as NCHW through a permute, which for a contiguous NHWC tensor is exactly
 PyTorch's channels_last layout, so cuDNN runs channels-last and returns an
 NHWC-contiguous result without a copy. Module attribute names are the
 reference state-dict keys, so a `.net` file loads with `strict=True`.
+
+`Conv` and `GroupNorm` know their shard of the mesh's "spatial" axis by
+their `spatial` attribute (`parallel.spatialize` sets it; None, the
+default, is the unsharded path): a 3x3 conv then takes its halo rows from
+the neighbouring ranks and a norm merges its statistics over them. The
+other layers (pixel shuffle, the MLR concatenation on channels, the
+residual adds) are row-local and need nothing.
 """
 from __future__ import annotations
 
@@ -16,26 +23,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import GN_EPS, group_norm_relu
+from ..parallel.spatial import group_norm_relu_spatial, halo_rows
 
 
 class Conv(nn.Conv2d):
     """Conv2d with torch's symmetric `k // 2` padding over NHWC input.
 
     Computes in the input's dtype: under bf16 the weights are cast per call,
-    as flax casts its f32 params to the compute dtype."""
+    as flax casts its f32 params to the compute dtype. With `spatial` set,
+    x is this rank's block of rows: a 3x3 conv reads the row above (and,
+    at stride 1, the row below) from its neighbours instead of padding
+    there (`parallel/spatial.py`)."""
+
+    spatial = None  # this rank's SpatialShard, or None (unsharded)
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1):
         super().__init__(in_ch, out_ch, kernel, stride=stride, padding=kernel // 2)
 
     def forward(self, x):
         w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, self.padding)
+        padding = self.padding
+        if self.spatial is not None and self.kernel_size[0] > 1:
+            x = halo_rows(x, self.spatial, below=self.stride[0] == 1)
+            padding = (0, self.padding[1])
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, self.stride, padding)
         return y.permute(0, 2, 3, 1)
 
 
 class GroupNorm(nn.Module):
     """GroupNorm over NHWC with fp32 statistics and fp32 affine params
-    (`weight`/`bias`, torch naming); kernel K1 on CUDA tensors."""
+    (`weight`/`bias`, torch naming); kernel K1 on CUDA tensors. With
+    `spatial` set, the statistics are the whole image's, merged over the
+    ranks that hold its rows (the cross-shard kernels)."""
+
+    spatial = None  # this rank's SpatialShard, or None (unsharded)
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = GN_EPS):
         super().__init__()
@@ -45,6 +66,9 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x, relu: bool = False):
+        if self.spatial is not None:
+            return group_norm_relu_spatial(x, self.weight, self.bias, self.num_groups, self.eps,
+                                           relu, self.spatial)
         return group_norm_relu(x.contiguous(), self.weight, self.bias, self.num_groups, self.eps,
                                relu)
 
@@ -123,14 +147,20 @@ class DenseUpsamplingConv(nn.Module):
         return pixel_shuffle(conv_gn(x, self.conv, self.norm, relu=True), self.rate)
 
 
-def bilinear_resize(x, out_h: int, out_w: int):
+def bilinear_resize(x, out_h: int, out_w: int, spatial=None):
     """NHWC bilinear resize with half-pixel centres (`align_corners=False`,
     no antialiasing). The JAX package's `jax.image.resize` antialiases when
     it shrinks, so the two differ where the DUC output overshoots an image
     whose sides are not multiples of 8 (ROADMAP R8); equal sizes are the
-    identity in both."""
+    identity in both. A resize is not row-local: on a block of rows
+    (`spatial`, a SpatialShard of more than one block) only the identity is
+    taken."""
     if (x.shape[1], x.shape[2]) == (out_h, out_w):
         return x
+    if spatial is not None and spatial.count > 1:
+        raise ValueError(f"bilinear_resize from {tuple(x.shape[1:3])} to {(out_h, out_w)} reads "
+                         f"across the rows of other ranks; on a spatial mesh only the identity "
+                         f"is taken")
     y = F.interpolate(x.permute(0, 3, 1, 2), size=(out_h, out_w), mode="bilinear",
                       align_corners=False, antialias=False)
     return y.permute(0, 2, 3, 1)

@@ -91,7 +91,10 @@ class TransPoseEncoder(nn.Module):
 class TransPoseDecoder(nn.Module):
     """Residual blocks + 1x1 residual stage + fc head (+ the DUC head with
     `full_size_output`, before `fc3`); `mean` is a buffer of length
-    num_task_channel added to the task channels."""
+    num_task_channel added to the task channels. `spatial` (set by
+    `parallel.spatialize`) refuses a DUC resize that is not the identity."""
+
+    spatial = None  # this rank's SpatialShard, or None (unsharded)
 
     def __init__(self, num_task_channel: int = 3, num_pos_channel: int = 1, tiny: bool = False,
                  dec_add_res_block: int = 2, num_groups: int = 32,
@@ -130,7 +133,7 @@ class TransPoseDecoder(nn.Module):
         if self.full_size_output:
             sc = self.duc_upsample(sc)
             if up_hw is not None:
-                sc = bilinear_resize(sc, *up_hw)
+                sc = bilinear_resize(sc, *up_hw, spatial=self.spatial)
         sc = self.fc3(sc)
         sc = sc.to(torch.promote_types(sc.dtype, torch.float32))  # bf16 -> f32, f64 stays
         task = sc[..., : self.num_task_channel] + self.mean

@@ -22,6 +22,18 @@ the plain version (`group_norm_relu_backward_plain`), as the JAX `_bwd`
 (`pallas_groupnorm.py:141`) is the vjp of its reference. At an exact tie
 pre-activation == 0 the ReLU passes no gradient (torch's rule; JAX's
 `jnp.maximum` passes half), so tests keep their inputs off the kink.
+
+The cross-shard form, for the mesh's "spatial" axis: an image's rows are
+split over the ranks of a spatial group, so the statistics span ranks. Four
+entries, each a kernel launch sequence on CUDA tensors and a plain twin on
+CPU tensors; `parallel/spatial.py::group_norm_relu_spatial` all-gathers
+over the group between the two of each direction: `group_norm_shard_stats`
+(per (image, group) count, mean and M2 of the shard), `group_norm_shard_apply` (the
+ranks' statistics merged in rank order, then the norm),
+`group_norm_shard_backward_sums` (per (image, channel) sums of the shard)
+and `group_norm_shard_backward_apply` (the ranks' sums added in rank order,
+dx with the image's whole H*W as the count, and this shard's part of dscale
+and dbias, which the training step's all-reduce adds over the ranks).
 """
 from __future__ import annotations
 
@@ -209,6 +221,14 @@ def _lib():
         lib.crossloc_gn_backward.restype = i
         lib.crossloc_gn_cluster_backward.argtypes = [p] * 9 + [i] * 13 + [p]
         lib.crossloc_gn_cluster_backward.restype = i
+        lib.crossloc_gn_shard_stats.argtypes = [p] * 3 + [i] * 7 + [p]
+        lib.crossloc_gn_shard_stats.restype = i
+        lib.crossloc_gn_shard_apply.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, i, i, p]
+        lib.crossloc_gn_shard_apply.restype = i
+        lib.crossloc_gn_shard_backward_sums.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.crossloc_gn_shard_backward_sums.restype = i
+        lib.crossloc_gn_shard_backward_apply.argtypes = [p] * 11 + [i] * 9 + [p]
+        lib.crossloc_gn_shard_backward_apply.restype = i
         lib.crossloc_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
@@ -216,13 +236,18 @@ def _lib():
 
 def _check_cuda(x, scale, bias) -> None:
     """Raise on any CUDA input the kernels do not take."""
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
+    _check_cuda_x(x)
+
+
+def _check_cuda_x(x) -> None:
+    """Raise on any CUDA activation the kernels do not take."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"groupnorm kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("groupnorm kernel takes a contiguous NHWC tensor")
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {x.device}")
     C = x.shape[-1]
     vec = _VEC_BYTES // x.element_size()
     if C % vec != 0 or C // vec > 1024:
@@ -433,3 +458,232 @@ def group_norm_relu(x, scale, bias, groups: int = 32, eps: float = GN_EPS, relu:
 
 
 group_norm_relu.launches = 0  # kernel launches (CUDA calls); CPU calls never count
+
+
+# -- the cross-shard form ------------------------------------------------------
+
+
+def _is_cpu(x) -> bool:
+    """True for a CPU tensor (the twin runs), False for a CUDA one (the
+    kernel runs); raises for any other device."""
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type == "cpu"
+    raise ValueError(f"no groupnorm for device {x.device}")
+
+
+def _check_shard(x, groups: int) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"expected NHWC input, got shape {tuple(x.shape)}")
+    if groups < 1 or x.shape[-1] % groups != 0:
+        raise ValueError(f"channels {x.shape[-1]} are not divisible into {groups} groups")
+
+
+def _check_gathered(gathered, x, shape) -> None:
+    """The all-gathered statistics or sums: float32 [S, *shape] on x's device."""
+    if (gathered.dim() != len(shape) + 1 or tuple(gathered.shape[1:]) != tuple(shape)
+            or gathered.dtype != torch.float32 or gathered.device != x.device
+            or not gathered.is_contiguous()):
+        raise ValueError(f"expected a contiguous float32 [S, {', '.join(map(str, shape))}] on "
+                         f"{x.device}, got {tuple(gathered.shape)} {gathered.dtype} on "
+                         f"{gathered.device}")
+
+
+def _per_channel(t, C: int):
+    """[B, G] -> [B, 1, 1, C], each group's value on its channels."""
+    return t.repeat_interleave(C // t.shape[1], dim=1)[:, None, None, :]
+
+
+def group_norm_shard_stats_plain(x, groups: int):
+    """Plain twin of K1-shard-stats: float32 [B, groups, 3] of (count, mean,
+    M2) per (image, group) over this shard's rows, M2 the centred sum of
+    squares."""
+    B, H, W, C = x.shape
+    xf = x.float().reshape(B, H * W, groups, C // groups)
+    mean = xf.mean(dim=(1, 3))
+    m2 = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3))
+    return torch.stack([torch.full_like(mean, float(H * W * (C // groups))), mean, m2], dim=-1)
+
+
+def _merge_shard_stats(gathered):
+    """(mean, var) [B, G] of [S, B, G, 3] (count, mean, M2) merged with
+    Chan's formula in rank order, var clamped at 0."""
+    n, mean, m2 = gathered[0].unbind(-1)
+    for part in gathered[1:]:
+        nb, mb, qb = part.unbind(-1)
+        total = n + nb
+        delta = mb - mean
+        wb = nb / total
+        mean = mean + delta * wb
+        m2 = m2 + qb + delta * delta * n * wb
+        n = total
+    return mean, torch.clamp(m2 / n, min=0.0)
+
+
+def group_norm_shard_apply_plain(x, scale, bias, gathered, groups: int, eps: float = GN_EPS,
+                                 relu: bool = True):
+    """Plain twin of K1-shard-apply: (y, stats) of this shard's rows from
+    every rank's `group_norm_shard_stats` ([S, B, groups, 3], merged in rank
+    order); stats is float32 [B, groups, 2] of (mu, rstd)."""
+    B, H, W, C = x.shape
+    mean, var = _merge_shard_stats(gathered.float())
+    rstd = torch.rsqrt(var + eps)
+    xf = x.float().reshape(B, H * W, groups, C // groups)
+    y = ((xf - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(B, H, W, C)
+    y = y * scale.float() + bias.float()
+    if relu:
+        y = torch.relu(y)
+    return y.to(x.dtype), torch.stack([mean, rstd], dim=-1)
+
+
+def _masked_grad(x, scale, bias, stats, dy, relu: bool):
+    """(x - mu, rstd per channel, gh): gh is dy where the forward's ReLU
+    passed, in float32."""
+    C = x.shape[-1]
+    mu, r = _per_channel(stats[..., 0], C), _per_channel(stats[..., 1], C)
+    d = x.float() - mu
+    gh = dy.float()
+    if relu:
+        gh = torch.where(d * (scale.float() * r) + bias.float() > 0, gh, torch.zeros_like(gh))
+    return d, r, gh
+
+
+def group_norm_shard_backward_sums_plain(x, scale, bias, stats, dy, groups: int,
+                                         relu: bool = True):
+    """Plain twin of K1-bwd-shard-sums: float32 [B, 2, C], per (image,
+    channel) the sums over this shard's rows of gh and gh * xhat."""
+    del groups  # the stats carry them
+    d, r, gh = _masked_grad(x, scale, bias, stats, dy, relu)
+    return torch.stack([gh.sum(dim=(1, 2)), (gh * d * r).sum(dim=(1, 2))], dim=1)
+
+
+def group_norm_shard_backward_apply_plain(x, scale, bias, stats, dy, gathered, index: int,
+                                          groups: int, count_hw: int, relu: bool = True):
+    """Plain twin of K1-bwd-shard-apply: (dx, dscale, dbias) from every
+    rank's `group_norm_shard_backward_sums` ([S, B, 2, C], added in rank
+    order); `count_hw` is the whole image's H*W. dscale and dbias are this
+    shard's part (rank `index`'s sums over its images)."""
+    B, H, W, C = x.shape
+    sums = gathered[0]
+    for part in gathered[1:]:
+        sums = sums + part
+    n = count_hw * (C // groups)
+    g = scale.float()
+    c1 = (g * sums[:, 0]).reshape(B, groups, -1).sum(-1) / n
+    c2 = (g * sums[:, 1]).reshape(B, groups, -1).sum(-1) / n
+    d, r, gh = _masked_grad(x, scale, bias, stats, dy, relu)
+    dx = (g * r) * gh - r * _per_channel(c1, C) - d * r * r * _per_channel(c2, C)
+    own = gathered[index]
+    return dx.to(x.dtype), own[:, 1].sum(0), own[:, 0].sum(0)
+
+
+def _stream(x) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def group_norm_shard_stats(x, groups: int):
+    """K1-shard-stats: float32 [B, groups, 3] (count, mean, M2) of this
+    shard's rows; the kernel on a CUDA tensor (one launch counted), the twin
+    on a CPU tensor."""
+    _check_shard(x, groups)
+    if _is_cpu(x):
+        return group_norm_shard_stats_plain(x, groups)
+    _check_cuda_x(x)
+    lib = _lib()
+    B, H, W, C = x.shape
+    chunk_rows, nchunks = _chunking(B, H * W)
+    part = torch.empty(B * nchunks * 2 * C, device=x.device, dtype=torch.float32)
+    out = torch.empty(B, groups, 3, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_shard_stats(x.data_ptr(), part.data_ptr(), out.data_ptr(), B,
+                                          H * W, C, groups, chunk_rows, nchunks,
+                                          int(x.dtype == torch.bfloat16), _stream(x))
+    _raise_on(err, lib, "shard stats")
+    group_norm_shard_stats.launches += 1
+    return out
+
+
+def group_norm_shard_apply(x, scale, bias, gathered, groups: int, eps: float = GN_EPS,
+                           relu: bool = True):
+    """K1-shard-apply: (y, stats [B, groups, 2] of (mu, rstd)) of this
+    shard's rows from every rank's statistics `gathered` [S, B, groups, 3];
+    the kernel on a CUDA tensor (one launch counted), the twin on a CPU
+    tensor."""
+    _check(x, scale, bias, groups)
+    _check_gathered(gathered, x, (x.shape[0], groups, 3))
+    if _is_cpu(x):
+        return group_norm_shard_apply_plain(x, scale, bias, gathered, groups, eps, relu)
+    _check_cuda(x, scale, bias)
+    lib = _lib()
+    B, H, W, C = x.shape
+    y = torch.empty_like(x)
+    affine = torch.empty(B * 3 * C, device=x.device, dtype=torch.float32)
+    stats = torch.empty(B, groups, 2, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_shard_apply(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), gathered.data_ptr(),
+            affine.data_ptr(), stats.data_ptr(), gathered.shape[0], B, H * W, C, groups,
+            float(eps), int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+    _raise_on(err, lib, "shard apply")
+    group_norm_shard_apply.launches += 1
+    return y, stats
+
+
+def group_norm_shard_backward_sums(x, scale, bias, stats, dy, groups: int, relu: bool = True):
+    """K1-bwd-shard-sums: float32 [B, 2, C] sums of gh and gh * xhat over
+    this shard's rows; the kernels on CUDA tensors (one launch counted), the
+    twin on CPU tensors."""
+    if _is_cpu(x):
+        _check(x, scale, bias, groups)
+        return group_norm_shard_backward_sums_plain(x, scale, bias, stats, dy, groups, relu)
+    _check_backward(x, scale, bias, stats, dy, groups)
+    lib = _lib()
+    B, H, W, C = x.shape
+    chunk_rows, nchunks = _chunking(B, H * W)
+    part = torch.empty(B * nchunks * 2 * C, device=x.device, dtype=torch.float32)
+    sums = torch.empty(B, 2, C, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_shard_backward_sums(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            part.data_ptr(), sums.data_ptr(), B, H * W, C, groups, chunk_rows, nchunks,
+            int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+    _raise_on(err, lib, "shard backward sums")
+    group_norm_shard_backward_sums.launches += 1
+    return sums
+
+
+def group_norm_shard_backward_apply(x, scale, bias, stats, dy, gathered, index: int, groups: int,
+                                    count_hw: int, relu: bool = True):
+    """K1-bwd-shard-apply: (dx, dscale, dbias) of this shard from every
+    rank's sums `gathered` [S, B, 2, C], the whole image's `count_hw` = H*W
+    and this rank's `index` in the group (its dscale and dbias are the
+    shard's part); the kernels on CUDA tensors (one launch counted), the
+    twin on CPU tensors."""
+    _check_gathered(gathered, x, (x.shape[0], 2, x.shape[-1]))
+    if not 0 <= index < gathered.shape[0]:
+        raise ValueError(f"rank index {index} outside the group of {gathered.shape[0]}")
+    if _is_cpu(x):
+        _check(x, scale, bias, groups)
+        return group_norm_shard_backward_apply_plain(x, scale, bias, stats, dy, gathered, index,
+                                                     groups, count_hw, relu)
+    _check_backward(x, scale, bias, stats, dy, groups)
+    lib = _lib()
+    B, H, W, C = x.shape
+    dx = torch.empty_like(x)
+    dscale = torch.empty(C, device=x.device, dtype=torch.float32)
+    dbias = torch.empty(C, device=x.device, dtype=torch.float32)
+    sums = torch.empty(B * 2 * C, device=x.device, dtype=torch.float32)
+    table = torch.empty(B * 5 * C, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_shard_backward_apply(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            gathered.data_ptr(), sums.data_ptr(), table.data_ptr(), dx.data_ptr(),
+            dscale.data_ptr(), dbias.data_ptr(), index, gathered.shape[0], B, H * W,
+            int(count_hw), C, groups, int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+    _raise_on(err, lib, "shard backward apply")
+    group_norm_shard_backward_apply.launches += 1
+    return dx, dscale, dbias
+
+
+for _entry in (group_norm_shard_stats, group_norm_shard_apply, group_norm_shard_backward_sums,
+               group_norm_shard_backward_apply):
+    _entry.launches = 0  # launch sequences on CUDA tensors; CPU calls never count

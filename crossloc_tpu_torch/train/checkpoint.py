@@ -138,7 +138,7 @@ def load_train_state_dict(state: TrainState, sd: Dict[str, Any]) -> TrainState:
             for name, view in views.items():
                 t = rows(sd[key][name])
                 if t.shape != view.shape:  # a whole tensor: take this rank's rows
-                    t = t.reshape(dp.world, -1)[dp.rank].view(view.shape)
+                    t = t.reshape(dp.shards, -1)[dp.shard_rank].view(view.shape)
                 view.copy_(t)
     step = float(sd["adam_step"])
     for s in adam.state.values():

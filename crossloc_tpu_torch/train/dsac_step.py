@@ -67,6 +67,9 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
                    generator: Optional[torch.Generator] = None,
                    global_batch: Optional[Tuple[int, int]] = None) -> dict:
         dp = state.parallel
+        if dp is not None and dp.mesh.spatial > 1:
+            raise ValueError("the DSAC step solves on whole images; a spatial mesh splits their "
+                             "rows over ranks")
         params = update_params(state)
         state.optimizer.adam.zero_grad(set_to_none=True)
         if dp is None:

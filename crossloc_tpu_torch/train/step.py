@@ -9,7 +9,7 @@ ROADMAP R5). The uncertainty channel splits off the last (channel) axis.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -43,10 +43,14 @@ def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optiona
                  coord_cfg: Optional[CoordLossConfig] = None,
                  depth_cfg: Optional[DepthLossConfig] = None,
                  normal_cfg: Optional[NormalLossConfig] = None, reduction: Optional[str] = "mean",
-                 count_reduce=None):
+                 count_reduce=None, spatial: Tuple[int, int] = (0, 1)):
     """Split the uncertainty channel and compute the task's loss: (loss,
     valid_rate). `count_reduce` makes the coord loss's valid-pixel gate
-    batch-global under data parallelism (`scene_coords_loss`)."""
+    batch-global under data parallelism (`scene_coords_loss`). `spatial`
+    (index, count): the batch holds block `index` of `count` equal blocks
+    of each image's rows (a spatial mesh), so the camera is the whole
+    image's and the coord loss's pixel grid starts at the block's row."""
+    index, count = spatial
     if uncertainty == "MLE":
         preds = predictions[..., :num_task_channel]
         unc = predictions[..., num_task_channel:]
@@ -54,7 +58,7 @@ def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optiona
         preds, unc = predictions, None
     if task == "coord":
         cfg = coord_cfg or CoordLossConfig(nodata_value=nodata_value)
-        img_h, img_w = batch.images.shape[1], batch.images.shape[2]
+        img_h, img_w = batch.images.shape[1] * count, batch.images.shape[2]
         focal = batch.focal.reshape(-1)[0]
         cam_mat = intrinsics(focal, img_w, img_h, device=focal.device)
         if batch.pp_shift is not None:
@@ -62,7 +66,7 @@ def task_loss_fn(task: str, predictions, batch: TrainBatch, uncertainty: Optiona
             shift[0, 2], shift[1, 2] = batch.pp_shift[0], batch.pp_shift[1]
             cam_mat = cam_mat + shift
         return scene_coords_loss(preds, batch.labels, batch.poses, cam_mat, unc, cfg, reduction,
-                                 count_reduce)
+                                 count_reduce, row_offset=index * preds.shape[1])
     if task == "depth":
         cfg = depth_cfg or DepthLossConfig(nodata_value=nodata_value)
         return depth_loss(preds, batch.labels, unc, cfg, reduction)
@@ -172,7 +176,7 @@ def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Opt
         preds = model(batch.images)
         loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
                                         nodata_value, coord_cfg, depth_cfg, normal_cfg,
-                                        count_reduce=dp.all_sum)
+                                        count_reduce=dp.all_sum, spatial=dp.spatial_block)
         loss.backward()
         dp.reduce_gradients()
     grad_norm = apply_gradients(state, params)

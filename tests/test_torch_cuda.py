@@ -542,3 +542,60 @@ def test_vanilla_net_on_the_card_matches_the_cpu(card):
             y = net.to(card)(x.to(card)).cpu()
     assert ops.group_norm_relu.launches == n0 and y.shape == (2, 12, 18, 3)
     assert float((y - ref).abs().max()) <= 1e-3 * float(ref.abs().max())
+
+
+# the cross-shard entries (the mesh's "spatial" axis): (B, H, W, C, groups),
+# H splitting into 2 and 4 blocks; group sizes 1, 16 and 64, C not a power of two
+SHARD_SHAPES = [(2, 32, 45, 32, 32), (2, 12, 9, 512, 32), (1, 8, 12, 2048, 32),
+                (3, 8, 13, 96, 32)]
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cross_shard_entries_match_their_twins(card, shape, dtype, relu, splits):
+    """Each of the four entries on the card against its plain twin on the
+    same inputs (the kernels' statistics fed to both), and the merged
+    blocks against the plain K1 twin on the whole image."""
+    from crossloc_tpu_torch import ops
+
+    B, H, W, C, G = shape
+    dt = getattr(torch, dtype)
+    x, s, b = _inputs((B, H, W), C, dt, card, seed=C + splits)
+    dy = _off_kink_dy(x, s, b, G, seed=H)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    xs = [t.contiguous() for t in x.chunk(splits, 1)]
+    dys = [t.contiguous() for t in dy.chunk(splits, 1)]
+    stats = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
+    plain = torch.stack([ops.group_norm_shard_stats_plain(t, G) for t in xs])
+    assert float(((stats - plain).abs() / plain.abs().clamp(min=1.0)).max()) <= 1e-5
+    ys, sts = [], []
+    for t in xs:
+        y, st = ops.group_norm_shard_apply(t, s, b, stats, G, relu=relu)
+        yp, stp = ops.group_norm_shard_apply_plain(t, s, b, stats, G, relu=relu)
+        assert float((y.float() - yp.float()).abs().max()) <= tol
+        assert float((st - stp).abs().max()) <= 1e-4 * float(stp.abs().max())
+        ys.append(y)
+        sts.append(st)
+    whole = group_norm_relu_plain(x, s, b, G, relu=relu).float()
+    assert float((torch.cat(ys, 1).float() - whole).abs().max()) <= tol
+    sums = torch.stack([ops.group_norm_shard_backward_sums(t, s, b, st, d, G, relu)
+                        for t, st, d in zip(xs, sts, dys)])
+    sums_p = torch.stack([ops.group_norm_shard_backward_sums_plain(t, s, b, st, d, G, relu)
+                          for t, st, d in zip(xs, sts, dys)])
+    assert float((sums - sums_p).abs().max()) <= 1e-4 * float(sums_p.abs().max())
+    dx_ref, ds_ref, db_ref = group_norm_relu_backward_plain(x, s, b, dy, G, relu=relu)
+    dxs, ds, db = [], 0, 0
+    for i, (t, st, d) in enumerate(zip(xs, sts, dys)):
+        got = ops.group_norm_shard_backward_apply(t, s, b, st, d, sums, i, G, H * W, relu)
+        ref = ops.group_norm_shard_backward_apply_plain(t, s, b, st, d, sums, i, G, H * W, relu)
+        for a, r in zip(got, ref):
+            assert float((a.float() - r.float()).abs().max()) <= tol * max(
+                1.0, float(r.float().abs().max()))
+        dxs.append(got[0])
+        ds, db = ds + got[1], db + got[2]
+    assert float((torch.cat(dxs, 1).float() - dx_ref.float()).abs().max()) <= tol * max(
+        1.0, float(dx_ref.float().abs().max()))
+    assert float((ds - ds_ref).abs().max()) <= 1e-4 * float(ds_ref.abs().max())
+    assert float((db - db_ref).abs().max()) <= 1e-4 * float(db_ref.abs().max())

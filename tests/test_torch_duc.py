@@ -121,7 +121,7 @@ def test_full_size_forward_at_100x150_differs_by_r8_alone(jax_net_and_params, mo
     assert out.shape[1:3] == (100, 150)
     assert _rel_err(out, ref) > 1e-2
 
-    def antialiased(t, h, w):
+    def antialiased(t, h, w, spatial=None):  # bilinear_resize's signature
         y = F.interpolate(t.permute(0, 3, 1, 2), size=(h, w), mode="bilinear",
                           align_corners=False, antialias=True)
         return y.permute(0, 2, 3, 1)
