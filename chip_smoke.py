@@ -106,6 +106,20 @@ Phases:
            crossloc_tpu_torch/tools/bench.py at B=128 (bf16 image -> pose,
            28 K1 launches per batch). Without the decoder's headers it says
            so and measures PIL alone;
+  arms     the eight harness scripts no other phase runs, with their own flags,
+           through the CLIs in process at full width (480x720, f32), one batch
+           of frames per section, one epoch: encoder_finetune.sh in place
+           (twice: the second resumes from the folder's model_resume.net) and
+           out of place, encoder_pretrain_{real,pairwise}_only.sh (28 + 28
+           launches per step), decoder_finetune_{real,pairwise}_only.sh over
+           the finetuned coord net and seeded depth and normal donors (67 + 33
+           per step), validate_encoder_finetune.sh and
+           validate_encoder_pretrain_{real,pairwise}_only.sh (the eval CLI over
+           each checkpoint folder, 28 per checkpoint, then select_ckpt); the
+           JAX CLIs' folder names, flags and results files, finite losses;
+           then the quickstart twin on cuda (400 steps of the tiny net, B=4,
+           96x144); `arms.json` in the out dir. The kernels phase holds K1 and
+           K1-bwd at the tiny net's shapes (B=4 and B=2, 96x144) too;
   profile  (extra, not in the default run) kernel-time breakdown of one
            image -> pose batch, one coord and one semantics training step, one
            finetune step and one e2e step with torch.profiler;
@@ -113,7 +127,13 @@ Phases:
            encoder_pretrain.sh and validate_encoder_pretrain.sh
            (crossloc_tpu_torch/tools/convergence.py: 480 plane frames at
            480x720, B=12, --bf16, 100 epochs at 2e-3, then 50 more in two LR
-           arms), held to the JAX tool's bars.
+           arms), held to the JAX tool's bars;
+  rehearsal (extra) crossloc_tpu_torch/examples/dress_rehearsal.sh on cuda: the
+           experiment matrix through the unchanged harness, the e2e, kill and
+           resume, and out-of-place arms; logs in `<out-dir>/rehearsal/`;
+  e2e_ab   (extra) crossloc_tpu_torch/tools/e2e_ab.py on cuda for --labels corrupt
+           and clean at --lr_e2e 3e-4, 3e-5 and 3e-6: held-out medians, walls
+           and per-step times in `<out-dir>/e2e_ab/e2e_ab.jsonl`.
 The gradient checks' float64 reference runs on the card with the plain twins.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
@@ -212,6 +232,44 @@ FT_PATH_SHAPES = [
     (512, 60, 90, False, 4, 2),    # towers' res2_skip, mlr_skip
     (1536, 60, 90, False, 1, 1),   # mlr_norm
 ]
+
+# the arms phase: the eight scripts' flags (script_clean_training/_lib.sh and
+# each script; --epochs 1 where the scripts give hundreds), and the folder
+# names the JAX CLIs write for them at full width
+ARM_FRAMES, ARM_VAL_FRAMES = TRAIN_BATCH, BATCH  # one batch per section
+ARM_SECTIONS = ("train_drone_real", "train_drone_sim", "train_oop_drone_real",
+                "train_oop_drone_sim", "val_drone_real")
+COORD_FLAGS = ["--inittolerance", "50.0", "--softclamp", "100", "--hardclamp", "1000"]
+ARM_FOLDERS = {
+    "encoder_finetune_ip":
+        "urbanscape-coord-sclean_training_ip-unc-MLE-e1-lr0.0001-pairs-ip-rc1.00-finetune",
+    "encoder_finetune_oop":
+        "urbanscape-coord-sclean_training_oop-unc-MLE-e1-lr0.0001-pairs-oop-rc1.00-finetune",
+    "encoder_pretrain_real_only":
+        "urbanscape-coord-sclean_training-unc-MLE-e1-lr0.0002-real_only-oop-rc1.00",
+    "encoder_pretrain_pairwise_only":
+        "urbanscape-coord-sclean_training-unc-MLE-e1-lr0.0002-pairs-ip-rc1.00",
+    "decoder_finetune_real_only": "urbanscape-coord-decoder_coord_free_depth_normal-senc-pt1.00-"
+                                  "ip-ft1.00-unc-MLE-e1-lr0.0001-real_only-ip-rc1.00",
+    "decoder_finetune_pairwise_only": "urbanscape-coord-decoder_coord_free_depth_normal-senc-"
+                                      "pt1.00-ip-ft1.00-unc-MLE-e1-lr0.0001-pairwise-ip-rc1.00",
+}
+# validate_encoder_finetune.sh and validate_encoder_pretrain_{real,pairwise}_only.sh
+ARM_VALIDATIONS = ("encoder_finetune_ip", "encoder_pretrain_real_only",
+                   "encoder_pretrain_pairwise_only")
+QUICKSTART_STEPS = 400
+# the e2e A/B's regimes and e2e learning rates (the JAX tool's default 3e-4 first)
+E2E_AB_RUNS = [(labels, lr) for labels in ("corrupt", "clean") for lr in (3e-4, 3e-5, 3e-6)]
+
+# the tiny coord net (--tiny, widths 128/128) at 96x144, the size of the
+# quickstart, the e2e A/B tool and the dress rehearsal: (C, H, W, relu, K1 calls
+# per forward, K1-bwd calls per step); 27 layers (no res2_skip). The rehearsal's
+# four-tower decoder finetune adds the MLR skip and merge norms at 12x18
+TINY_H, TINY_W = 96, 144
+TINY_PATH_SHAPES = [(32, 96, 144, True, 1, 1), (64, 48, 72, True, 1, 1),
+                    (128, 24, 36, True, 1, 1), (128, 12, 18, True, 24, 24)]
+TINY_MLR_SHAPES = [(128, 12, 18, False, 1, 1), (512, 12, 18, False, 1, 1)]
+TINY_BATCHES = (4, 2)  # e2e_ab and quickstart; the rehearsal
 
 # the spatial phase: the global batch of its 2-rank step, the cross-shard
 # entries by their names in the kernels line, and the blocks whose statistics
@@ -442,6 +500,49 @@ class Smoke:
             library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
             three_pass_ms=f32["three_pass_ms"])
         self._backward_kernel(flush)
+        self._tiny_kernels(flush, gen)
+
+    def _tiny_kernels(self, flush, gen):
+        """K1 and K1-bwd at the tiny net's shapes at 96x144 (TINY_PATH_SHAPES;
+        the MLR norms at B=2), f32 and bf16, each design against the plain
+        twin as at the full width, timed; totals over one 27-call forward and
+        step per batch in `k1_tiny_shapes.json`."""
+        shapes = {B: TINY_PATH_SHAPES + (TINY_MLR_SHAPES if B == 2 else []) for B in TINY_BATCHES}
+        fwd, bwd, worst = {}, {}, [0.0, 0.0]
+        for seed, B in enumerate(TINY_BATCHES, start=6):
+            fwd[B], w = self._forward_rows(flush, gen, B, [s[:5] for s in shapes[B]])
+            worst[0] = max(worst[0], w)
+            bwd[B], w = self._backward_rows(flush, B, [s[:4] for s in shapes[B]], seed=seed)
+            worst[1] = max(worst[1], w)
+        totals = {}
+        for B in TINY_BATCHES:
+            for kind, rows, col, keys in (
+                    ("k1", fwd[B], 4, ("ms", "three_pass_ms", "plain_ms", "library_ms", "bound_ms")),
+                    ("k1_bwd", bwd[B], 5, ("ms", "four_kernel_ms", "plain_ms", "library_ms",
+                                           "bound_ms"))):
+                for d in ("float32", "bfloat16"):
+                    by = {(r["C"], r["H"], r["relu"]): r for r in rows if r["dtype"] == d}
+                    t = {k: sum(sh[col] * by[(sh[0], sh[1], sh[3])][k] for sh in TINY_PATH_SHAPES)
+                         for k in keys}
+                    totals[f"{kind}_B{B}_{d}"] = t
+                    other = "three-pass" if kind == "k1" else "four-kernel"
+                    log(f"{'K1' if kind == 'k1' else 'K1-bwd'} over one {d} tiny-net "
+                        f"{'forward' if kind == 'k1' else 'step'}'s 27 calls (B={B}, "
+                        f"{TINY_H}x{TINY_W}), device time: planned {t['ms']:.4f} ms, {other} "
+                        f"{t[keys[1]]:.4f} ms, plain {t['plain_ms']:.4f} ms, library "
+                        f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                        f"(bound / planned = {t['bound_ms'] / t['ms']:.1%})")
+        with open(os.path.join(self.out_dir, "k1_tiny_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
+                           forward_rows=[r for B in TINY_BATCHES for r in fwd[B]],
+                           backward_rows=[r for B in TINY_BATCHES for r in bwd[B]],
+                           totals=totals), f, indent=1)
+        for name, w, kind in (("groupnorm", worst[0], "k1"), ("groupnorm_backward", worst[1],
+                                                              "k1_bwd")):
+            k = self.kernels[name]
+            k["max_abs_err"] = max(k["max_abs_err"], w)
+            k["tiny_B4_ms"] = totals[f"{kind}_B4_float32"]["ms"]
+            k["tiny_B4_bound_ms"] = totals[f"{kind}_B4_float32"]["bound_ms"]
 
     def _forward_rows(self, flush, gen, B, shapes):
         """K1 at each (C, H, W, relu, layers per forward) of `shapes`, batch B,
@@ -3107,6 +3208,248 @@ class Smoke:
                 f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
         model.dtype = torch.float32
 
+    # -- phase: the harness arms ---------------------------------------------
+    def phase_arms(self):
+        """The eight scripts the earlier phases did not run, with their own
+        flags, through the CLIs in process at full width (480x720, f32), one
+        batch of frames per section and one epoch: encoder_finetune.sh in
+        place (twice: the second run resumes), out of place,
+        encoder_pretrain_{real,pairwise}_only.sh, decoder_finetune_{real,
+        pairwise}_only.sh over the in-place finetune's coord net and seeded
+        depth and normal donors, validate_encoder_finetune.sh and
+        validate_encoder_pretrain_{real,pairwise}_only.sh (the eval CLI over
+        each checkpoint folder, then select_ckpt); then the quickstart twin
+        on cuda. Each run's K1 / K1-bwd launches are counted."""
+        import re
+
+        import numpy as np
+        import torch
+
+        from crossloc_tpu_torch import compat, data, models, ops
+        from crossloc_tpu_torch.cli import finetune_decoder_single_task as ft_cli
+        from crossloc_tpu_torch.cli import select_ckpt
+        from crossloc_tpu_torch.cli import test_single_task as test_cli
+        from crossloc_tpu_torch.cli import train_single_task as train_cli
+        from crossloc_tpu_torch.examples import quickstart
+
+        t_phase = time.perf_counter()
+        work = WORK_DIR + "_arms"
+        shutil.rmtree(work, ignore_errors=True)
+        datasets = os.path.join(work, "datasets")
+        ckpts = os.path.join(work, "ckpts")
+        t0 = time.perf_counter()
+        for seed, section in enumerate(ARM_SECTIONS):
+            data.write_fake_dataset(os.path.join(datasets, "urbanscape", section),
+                                    n=ARM_VAL_FRAMES if section.startswith("val") else ARM_FRAMES,
+                                    img_h=IMG_H, img_w=IMG_W, focal=480.0, seed=seed,
+                                    scene="plane")
+        donors = {}
+        for seed, task in enumerate(FT_TASKS):
+            net = models.build_network(task, "MLE", mean=[0.0] * models.task_channels(task))
+            models.init_weights(net, torch.Generator().manual_seed(seed))
+            os.makedirs(os.path.join(work, "weights", task))
+            donors[task] = os.path.join(work, "weights", task, "model.net")
+            compat.save_net(donors[task], net)
+        log(f"wrote {len(ARM_SECTIONS)} plane sections at {IMG_H}x{IMG_W} ({ARM_FRAMES} frames, "
+            f"val {ARM_VAL_FRAMES}) and three full-width donors in "
+            f"{time.perf_counter() - t0:.1f} s")
+        common = ["--epochs", "1", "--datasets_dir", datasets, "--image_height", str(IMG_H),
+                  "--ckpt_dir", ckpts, "--device", "cuda"]
+        enc = ["urbanscape", "--task", "coord", *COORD_FLAGS, "--batch_size", str(TRAIN_BATCH),
+               "--uncertainty", "MLE", "--auto_resume"]
+        runs = {
+            "encoder_finetune_ip": (train_cli.main, enc + [
+                "--learningrate", "1e-4", "--real_data_domain", "in_place", "--real_data_chunk",
+                "1.0", "--sim_data_chunk", "0.00", "--network_in", donors["coord"], "--session",
+                "clean_training_ip", "--no_lr_scheduling"]),
+            "encoder_finetune_oop": (train_cli.main, enc + [
+                "--learningrate", "1e-4", "--real_data_domain", "out_of_place",
+                "--real_data_chunk", "1.0", "--sim_data_chunk", "0.00", "--network_in",
+                donors["coord"], "--session", "clean_training_oop", "--no_lr_scheduling"]),
+            "encoder_pretrain_real_only": (train_cli.main, enc + [
+                "--learningrate", "2e-4", "--real_data_domain", "out_of_place",
+                "--real_data_chunk", "1.0", "--sim_data_chunk", "0.0", "--real_only",
+                "--session", "clean_training"]),
+            "encoder_pretrain_pairwise_only": (train_cli.main, enc + [
+                "--learningrate", "2e-4", "--real_data_domain", "in_place", "--real_data_chunk",
+                "1.0", "--sim_data_chunk", "0.0", "--session", "clean_training"]),
+        }
+        report = {}
+
+        def check_run(name, out_dir, losses, fwd, bwd, wall, per_fwd, per_bwd, files):
+            steps = len(losses)
+            log(f"{name} on cuda ({IMG_H}x{IMG_W}, f32, 1 epoch): {wall:.1f} s wall for "
+                f"{steps} steps, losses {losses}, {fwd} K1 and {bwd} K1-bwd launches")
+            if os.path.basename(out_dir) != ARM_FOLDERS[name.split(" ")[0]]:
+                raise AssertionError(f"{name} wrote {os.path.basename(out_dir)}, the JAX CLI "
+                                     f"{ARM_FOLDERS[name.split(' ')[0]]}")
+            if not steps or not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"{name}: losses {losses}")
+            if fwd != per_fwd * steps or bwd != per_bwd * steps:
+                raise AssertionError(f"{name}: expected {per_fwd} K1 and {per_bwd} K1-bwd "
+                                     f"launches per step, got {fwd}/{bwd} over {steps} steps")
+            ckpt_dir = os.path.join(ckpts, os.path.basename(out_dir))
+            for f in files + ["FLAG_training_done.nodata"]:
+                if not os.path.exists(os.path.join(out_dir, f)):
+                    raise AssertionError(f"{name}: {f} not written")
+            if not (glob.glob(os.path.join(ckpt_dir, "ckpt_iter_*.net"))
+                    and os.path.exists(os.path.join(ckpt_dir, "FLAG_training_done.nodata"))):
+                raise AssertionError(f"{name}: no ckpt_iter_*.net or flag in {ckpt_dir}")
+            report[name] = dict(steps=steps, losses=losses, k1=fwd, k1_bwd=bwd, wall_s=wall)
+            self.launches[f"arms_{name.replace(' ', '_')}"] = dict(groupnorm=fwd,
+                                                                   groupnorm_backward=bwd)
+
+        for name, (main, args) in runs.items():
+            out_dir, losses, fwd, bwd, wall = self._run_cli(main, work, args + common)
+            check_run(name, out_dir, losses, fwd, bwd, wall, 28, 28,
+                      ["model_resume.net"] if "finetune" in name else ["model.net"])
+            if name == "encoder_finetune_ip":
+                # the same command again: --auto_resume now holds and resumes
+                # from the folder's own model_resume.net (the JAX CLI's rule)
+                n_log = len(losses)
+                out_dir, losses, fwd, bwd, wall = self._run_cli(main, work, args + common)
+                check_run(name + " resumed", out_dir, losses[n_log:], fwd, bwd, wall, 28, 28,
+                          ["model_resume.net", "model_auto_resume.net"])
+                text = open(os.path.join(out_dir, "output.log")).read()
+                want = (f"***** Automatic resume training from {out_dir}/model_resume.net "
+                        "*****")
+                if want not in text:
+                    raise AssertionError("the second encoder_finetune run did not resume from "
+                                         "its folder's model_resume.net")
+                coord_donor = os.path.join(out_dir, "model_resume.net")
+
+        dec = FINETUNE_ARGS[:-2] + [
+            "--coord_weight", coord_donor, "--depth_weight", donors["depth"], "--normal_weight",
+            donors["normal"], "--session", "enc-pt1.00-ip-ft1.00"]
+        for name, extra in (("decoder_finetune_real_only", ["--real_only"]),
+                            ("decoder_finetune_pairwise_only", [])):
+            out_dir, losses, fwd, bwd, wall = self._run_cli(ft_cli.main, work,
+                                                            dec + extra + common)
+            check_run(name, out_dir, losses, fwd, bwd, wall, FT_FWD, FT_BWD, ["model.net"])
+
+        for name in ARM_VALIDATIONS:
+            ckpt_dir = os.path.join(ckpts, ARM_FOLDERS[name])
+            ops.group_norm_relu.launches = 0
+            t = time.perf_counter()
+            logs = test_cli.main(["urbanscape", "--task", "coord", "--uncertainty", "MLE",
+                                  "--section", "val_drone_real", "--network_in", ckpt_dir,
+                                  "--min_ckpt_iter", "0", "--max_ckpt_iter", "1e98",
+                                  "--datasets_dir", datasets, "--image_height", str(IMG_H),
+                                  "--device", "cuda"])
+            torch.cuda.synchronize()
+            served, wall = ops.group_norm_relu.launches, time.perf_counter() - t
+            cwd = os.getcwd()
+            os.chdir(ckpt_dir)
+            try:
+                flag = select_ckpt.main(["--task", "coord"])
+            finally:
+                os.chdir(cwd)
+            text = "".join(open(f).read() for f in logs)
+            median = re.findall(r"Median Error:\s+(-?\d+.\d+) deg, (-?\d+.\d+) m", text)
+            log(f"validate {name} on cuda: {len(logs)} checkpoint(s) in {wall:.1f} s, {served} K1 "
+                f"launches, medians {median}, {flag}")
+            self.launches[f"arms_validate_{name}"] = dict(groupnorm=served)
+            if (served != 28 * len(logs) or len(median) != len(logs)
+                    or not all(math.isfinite(float(v)) for m in median for v in m)
+                    or not os.path.exists(os.path.join(ckpt_dir, "results_overall.txt"))
+                    or len(glob.glob(os.path.join(ckpt_dir, "FLAG_SELECTED_ITER_*.nodata"))) != 1):
+                raise AssertionError(f"validate {name}: no results, selection or finite medians")
+            report[f"validate_{name}"] = dict(checkpoints=len(logs), k1=served, wall_s=wall,
+                                              medians=median)
+
+        ops.group_norm_relu.launches = 0
+        ops.group_norm_relu_backward.launches = 0
+        t = time.perf_counter()
+        t_err, r_err = quickstart.main(steps=QUICKSTART_STEPS, device="cuda")
+        torch.cuda.synchronize()
+        fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+        wall = time.perf_counter() - t
+        log(f"quickstart on cuda ({QUICKSTART_STEPS} steps, B=4, 96x144, tiny): {wall:.1f} s, "
+            f"{fwd} K1 and {bwd} K1-bwd launches, pose errors {t_err.round(3)} m, "
+            f"{r_err.round(3)} deg")
+        self.launches["arms_quickstart"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+        if fwd != 27 * (QUICKSTART_STEPS + 1) or bwd != 27 * QUICKSTART_STEPS:
+            raise AssertionError(f"quickstart: {fwd}/{bwd} launches, expected "
+                                 f"{27 * (QUICKSTART_STEPS + 1)}/{27 * QUICKSTART_STEPS}")
+        if not (np.isfinite(t_err).all() and np.isfinite(r_err).all() and (t_err < 1e3).all()
+                and (r_err <= 180).all()):
+            raise AssertionError(f"quickstart pose errors {t_err} m, {r_err} deg")
+        report["quickstart"] = dict(k1=fwd, k1_bwd=bwd, wall_s=wall, t_err=t_err.tolist(),
+                                    r_err=r_err.tolist())
+        report["phase_wall_s"] = time.perf_counter() - t_phase
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "arms.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), **report), f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- extra: the dress rehearsal ------------------------------------------
+    def phase_rehearsal(self):
+        """`crossloc_tpu_torch/examples/dress_rehearsal.sh <ws> cuda`: the whole
+        experiment matrix through the unchanged harness on the card, in its
+        own processes; its output and each run's output.log and results
+        files go to `<out-dir>/rehearsal/`."""
+        ws = WORK_DIR + "_rehearsal"
+        dst = os.path.join(self.out_dir, "rehearsal")
+        shutil.rmtree(ws, ignore_errors=True)
+        os.makedirs(dst, exist_ok=True)
+        t = time.perf_counter()
+        with open(os.path.join(dst, "rehearsal.log"), "w") as f:
+            rc = subprocess.run(["bash", os.path.join(HERE, "crossloc_tpu_torch", "examples",
+                                                      "dress_rehearsal.sh"), ws, "cuda"],
+                                stdout=f, stderr=subprocess.STDOUT, timeout=1800).returncode
+        wall = time.perf_counter() - t
+        for f in glob.glob(os.path.join(ws, "output", "*", "output.log")):
+            shutil.copy(f, os.path.join(dst, os.path.basename(os.path.dirname(f)) + ".log"))
+        for f in glob.glob(os.path.join(ws, "ckpts", "*", "results_*.txt")):
+            shutil.copy(f, os.path.join(dst, f.split(os.sep)[-2] + "_" + os.path.basename(f)))
+        text = open(os.path.join(dst, "rehearsal.log")).read()
+        log(f"dress rehearsal on cuda: rc {rc} in {wall:.1f} s; "
+            + "; ".join(ln for ln in text.splitlines() if ln.startswith("== ")))
+        if rc != 0 or "== dress rehearsal PASSED" not in text:
+            raise AssertionError(f"the dress rehearsal failed (rc {rc}):\n{text[-3000:]}")
+        with open(os.path.join(dst, "rehearsal.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rc=rc, wall_s=wall),
+                      f, indent=1)
+        shutil.rmtree(ws, ignore_errors=True)
+
+    # -- extra: the proxy-vs-e2e A/B -----------------------------------------
+    def phase_e2e_ab(self):
+        """`crossloc_tpu_torch/tools/e2e_ab.py` on cuda for each label regime
+        at --lr_e2e 3e-4 (the JAX default), 3e-5 and 3e-6: each run's JSON
+        line, wall, per-step times and K1 / K1-bwd launches to
+        `<out-dir>/e2e_ab/e2e_ab.jsonl`."""
+        import torch
+
+        from crossloc_tpu_torch import ops
+        from crossloc_tpu_torch.tools import e2e_ab
+
+        dst = os.path.join(self.out_dir, "e2e_ab")
+        os.makedirs(dst, exist_ok=True)
+        lines = []
+        for labels, lr in E2E_AB_RUNS:
+            ops.group_norm_relu.launches = 0
+            ops.group_norm_relu_backward.launches = 0
+            t = time.perf_counter()
+            out, timing = e2e_ab.run(e2e_ab.parse_args(["--labels", labels, "--lr_e2e", str(lr),
+                                                        "--device", "cuda"]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            fwd, bwd = ops.group_norm_relu.launches, ops.group_norm_relu_backward.launches
+            self.launches[f"e2e_ab_{labels}_{lr:g}"] = dict(groupnorm=fwd, groupnorm_backward=bwd)
+            line = dict(out, wall_s=wall, k1=fwd, k1_bwd=bwd, device=self.device_name,
+                        smi=nvidia_smi_line(), **timing)
+            log("e2e_ab " + json.dumps(line))
+            lines.append(line)
+            with open(os.path.join(dst, "e2e_ab.jsonl"), "a") as f:
+                f.write(json.dumps(line) + "\n")
+            steps = out["pre"] + 2 * out["cont"]
+            # the net runs once a step and once per held-out evaluation (3)
+            if fwd != 27 * (steps + 3) or bwd != 27 * steps:
+                raise AssertionError(f"e2e_ab {labels} {lr}: {fwd}/{bwd} launches")
+            vals = [out[a][k] for a in ("init", "proxy", "e2e") for k in ("t", "r")]
+            if not all(math.isfinite(v) for v in vals[:4]):
+                raise AssertionError(f"e2e_ab {labels} {lr}: the init or proxy arm is not finite")
+
     # -- extra: the convergence run ------------------------------------------
     def phase_converge(self):
         """The coord net's convergence run through the unchanged harness
@@ -3142,8 +3485,8 @@ class Smoke:
 
 
 PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel",
-          "spatial", "loader")
-EXTRA_PHASES = ("profile", "converge")
+          "spatial", "loader", "arms")
+EXTRA_PHASES = ("profile", "converge", "rehearsal", "e2e_ab")
 
 
 def main(argv=None) -> int:

@@ -32,8 +32,15 @@ def select_device_from_env(device: Optional[str] = None) -> torch.device:
         if dev.index >= torch.cuda.device_count():
             raise RuntimeError(f"CROSSLOC_DEVICE_ORDINAL={ordinal} but the machine has "
                                f"{torch.cuda.device_count()} CUDA devices")
-        logging.info("Selected device %s via CROSSLOC_DEVICE_ORDINAL", dev)
     return dev
+
+
+def log_device_selection(device: torch.device) -> None:
+    """The JAX CLIs' `output.log` line of a harness run (CROSSLOC_DEVICE_ORDINAL
+    set): the device the ordinal picked; the CPU is ordinal 0."""
+    ordinal = os.environ.get("CROSSLOC_DEVICE_ORDINAL")
+    if ordinal is not None and (device.type == "cuda" or ordinal == "0"):
+        logging.info("Selected device %s via CROSSLOC_DEVICE_ORDINAL", device)
 
 
 def check_parallel(opt, in_job: bool) -> None:
@@ -191,14 +198,17 @@ def wire_mlr_weights(model: models.TransPoseNet, encoder_paths: Sequence[str],
                      [k for k in keys if k.startswith("decoder.")])
     wired["mean"] = donors[0]["decoder.mean"]
     logging.info("Loaded coord weight for decoder init: %s", encoder_paths[0])
+    paths = list(encoder_paths)
     if not reuse_coord_encoder:
-        donors = donors[1:]
-    for i, donor in enumerate(donors, start=1):
+        donors, paths = donors[1:], paths[1:]
+    for i, (donor, path) in enumerate(zip(donors, paths), start=1):
         dst = f"mlr_encoder_{i}."
         wired.update(_renamed(donor, "encoder.", dst, [k for k in keys if k.startswith(dst)]))
-        logging.info("Wired MLR encoder %d (%s) from %s", i,
-                     "trainable" if i <= model.num_unfrozen_encoder else "frozen",
-                     encoder_paths[i - 1 if reuse_coord_encoder else i])
+        # the JAX CLI's words, whichever towers train
+        if reuse_coord_encoder and i == 1:
+            logging.info("Reused coord encoder as MLR encoder %d", i)
+        else:
+            logging.info("Loaded frozen encoder %d from %s", i, path)
     state = model.state_dict()
     state.update(wired)
     model.load_state_dict(state, strict=True)

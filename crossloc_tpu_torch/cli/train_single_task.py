@@ -221,6 +221,7 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
     weights; a given model (the finetune CLI's wired MLR net) is trained as
     it comes. `--network_in` weights load into either. In a multi-process
     run every rank calls it (module docstring)."""
+    common.log_device_selection(device)
     nodata_value = get_nodata_value(opt.scene)
     rank, world = parallel.topology()
     is_main = rank == 0

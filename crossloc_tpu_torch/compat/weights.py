@@ -18,6 +18,7 @@ grammar (a copy of `crossloc_tpu/compat/torch_import.py:24-101`):
 """
 from __future__ import annotations
 
+import os
 from collections import OrderedDict
 from typing import Dict, List, Tuple
 
@@ -154,7 +155,11 @@ def load_net(path: str, model=None) -> Dict[str, torch.Tensor]:
 
 
 def save_net(path: str, model) -> None:
-    """Write the model's weights as a reference-format `.net` file."""
+    """Write the model's weights as a reference-format `.net` file, atomically:
+    a process killed mid-write (the harness's kill-and-resume arm, where a
+    card's epochs take a fraction of a second) leaves the previous file."""
     state = OrderedDict((k, v.detach().float().cpu().contiguous())
                         for k, v in model.state_dict().items())
-    torch.save(state, path)
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)

@@ -37,6 +37,11 @@ stage's wall is then that of the run that finished it).
     python -m crossloc_tpu_torch.tools.convergence --workdir DIR   # the card
     python -m crossloc_tpu_torch.tools.convergence --smoke         # CPU mechanics
 
+The JAX tool's protocol flags `--frames`, `--val_frames`, `--epochs`, `--lr`,
+`--const_lr` (phase 1 at a constant LR; on by default, `--no-const_lr`
+turns the schedule on) and `--extend_epochs` (the arms' epochs; 0 runs
+phase 1 alone) default to the run above.
+
 `--smoke` runs the same stages on the CPU (`--device cpu`) at 32x48 with the
 tiny net, 4 frames and 1 + 1 epochs, and holds no bar: a few steps do not
 converge. Without `--smoke` the run needs a CUDA card and does not fall back
@@ -77,6 +82,17 @@ def parse_args(argv=None):
     p.add_argument("--final_t_max", type=float, default=4.0,
                    help="required final held-out median translation error (scene units; "
                         "the scene's footprint is about 300)")
+    # the JAX tool's protocol flags; the defaults are the run above
+    p.add_argument("--frames", type=int, default=None, help="train frames (480; smoke 4)")
+    p.add_argument("--val_frames", type=int, default=None, help="held-out frames (16; smoke 2)")
+    p.add_argument("--epochs", type=int, default=None, help="phase 1 epochs (100; smoke 1)")
+    p.add_argument("--lr", type=float, default=LR, help="--learningrate of every stage")
+    p.add_argument("--const_lr", action=argparse.BooleanOptionalAction, default=True,
+                   help="phase 1 without the MultiStepLR schedule (--no_lr_scheduling); "
+                        "--no-const_lr turns it on")
+    p.add_argument("--extend_epochs", type=int, default=None,
+                   help="epochs of the --epoch_plus arms after phase 1 (50; smoke 1); 0 runs "
+                        "phase 1 alone")
     return p.parse_args(argv)
 
 
@@ -171,8 +187,11 @@ def main(argv=None) -> list:
     ws = os.path.abspath(args.workdir or tempfile.mkdtemp(prefix="convergence."))
     os.makedirs(ws, exist_ok=True)
     img_h, img_w, focal = (32, 48, 40.0) if smoke else (480, 720, 480.0)
-    frames, val_frames = (4, 2) if smoke else (480, 16)
-    epochs, total = (1, 2) if smoke else (100, 150)
+    frames = args.frames or (4 if smoke else 480)
+    val_frames = args.val_frames or (2 if smoke else 16)
+    epochs = args.epochs or (1 if smoke else 100)
+    extend = args.extend_epochs if args.extend_epochs is not None else (1 if smoke else 50)
+    total = epochs + extend
     batch = 2 if smoke else 12
     depth = "TINY" if smoke else "FULL"
     device = "cpu" if smoke else nvidia_smi_line()
@@ -186,7 +205,7 @@ def main(argv=None) -> list:
         env["OMP_NUM_THREADS"] = "2"
     common = (f"--batch_size {batch} --datasets_dir {ws}/datasets --image_height {img_h}"
               + (" --device cpu" if smoke else ""))
-    train_args = f"{common} --bf16 --snapshot_every_epochs 5 --learningrate {LR}"
+    train_args = f"{common} --bf16 --snapshot_every_epochs 5 --learningrate {args.lr}"
     pretrain = ["bash", os.path.join(REPO, "script_clean_training", "encoder_pretrain.sh"),
                 "urbanscape", "coord", depth, "1.0", "in_place", "0.0", "MLE", "0"]
 
@@ -206,18 +225,21 @@ def main(argv=None) -> list:
 
     p1 = _stage_dir(ws, "phase1")
     if not _done(_output_dir(p1, epochs)):
-        print(f"== 2. phase 1: {epochs} epochs at a constant 2e-3", flush=True)
+        print(f"== 2. phase 1: {epochs} epochs at {'a constant ' if args.const_lr else ''}"
+              f"{args.lr:g}", flush=True)
         with times.sw.section("phase1"):
             run(pretrain, p1, dict(env, CKPT_DIR=os.path.join(p1, "ckpts"), EXTRA_ARGS=(
-                f"--epochs {epochs} {train_args} --no_lr_scheduling")),
+                f"--epochs {epochs} {train_args}"
+                + (" --no_lr_scheduling" if args.const_lr else ""))),
                 os.path.join(ws, "phase1.log"))
         times.finished("phase1")
     p1_out = _output_dir(p1, epochs)
     if not _done(p1_out):
         raise RuntimeError(f"phase 1 left no finished output folder in {p1}")
 
+    arms = ARMS if extend else ()
     arm_outs = {}
-    for arm in ARMS:
+    for arm in arms:
         d = _stage_dir(ws, f"arm_{arm}")
         if not _done(_output_dir(d, total)):
             print(f"== 3. phase 2, arm {arm}: --epoch_plus to {total} epochs", flush=True)
@@ -257,19 +279,20 @@ def main(argv=None) -> list:
             raise RuntimeError(f"no results parsed in {ckpts}")
 
     results, failed = [], []
-    for arm in ARMS:
-        traj = sweeps["phase1"] + sweeps[arm]
+    for arm in arms or ("phase1",):
+        traj = sweeps["phase1"] + (sweeps[arm] if arm in arm_outs else [])
         print(f"\narm {arm}: held-out val_sim per checkpoint (iteration, median t, median r, "
               f"% within 10m/10deg, % within 5m/5deg):")
         for it, t, r, p10, p5 in traj:
             print(f"  iter {it:>8d}: t {t:8.2f}  r {r:7.1f}  {p10:5.1f}%  {p5:5.1f}%")
         # the arm's output.log holds phase 1's lines too (--epoch_plus copies it)
-        loss = parse_training_log(os.path.join(arm_outs[arm], "output.log"))["loss"]
+        loss = parse_training_log(os.path.join(arm_outs.get(arm, p1_out), "output.log"))["loss"]
         k = max(1, len(loss) // 20)
-        wall = times.seconds["phase1"] + times.seconds[f"arm_{arm}"]
+        wall = times.seconds["phase1"] + times.seconds.get(f"arm_{arm}", 0.0)
         # the LR of the first extension epoch (the re-run last epoch of
         # phase 1 runs at phase 1's last scheduled LR)
-        lr = multistep_lr(LR, frames // batch, enabled=arm == "ref")(epochs * (frames // batch))
+        lr = multistep_lr(args.lr, frames // batch, enabled=arm == "ref")(
+            epochs * (frames // batch))
         out = dict(metric="convergence", arm=arm, mode="smoke" if smoke else "card", lr_phase2=lr,
                    loss_first=float(np.mean(loss[:k])), loss_last=float(np.mean(loss[-k:])),
                    t_first=traj[0][1], t_final=traj[-1][1], t_best=min(r[1] for r in traj),

@@ -2,7 +2,8 @@
 scene, phase 1 and both phase-2 arms through the unchanged
 `encoder_pretrain.sh`, the sweeps through `validate_encoder_pretrain.sh`,
 the parsed trajectory and one JSON line per arm; a rerun on the same work
-directory skips every finished stage and reports the same numbers."""
+directory skips every finished stage and reports the same numbers. The
+first run passes the JAX tool's protocol flags at their smoke defaults."""
 import json
 
 import pytest
@@ -16,7 +17,11 @@ KEYS = {"loss_first", "loss_last", "t_first", "t_final", "t_best", "r_final", "p
 @pytest.fixture(scope="module")
 def smoke(tmp_path_factory):
     ws = tmp_path_factory.mktemp("conv")
-    return ws, convergence.main(["--smoke", "--workdir", str(ws)])
+    # the JAX tool's protocol flags at the smoke run's own values; the rerun
+    # below passes none and must find the same stages finished
+    return ws, convergence.main(["--smoke", "--workdir", str(ws), "--frames", "4",
+                                 "--val_frames", "2", "--epochs", "1", "--lr", "2e-3",
+                                 "--const_lr", "--extend_epochs", "1"])
 
 
 def test_smoke_runs_both_arms_through_the_harness(smoke, capsys):

@@ -145,3 +145,28 @@ def test_unported_configs_raise():
         models.build_network("semantics", None)
     net = cli_common.build_network("cambridge", "coord", True, False, "MLE", False, [0.0] * 3)
     assert isinstance(net, models.VanillaNetwork)
+
+
+def test_save_net_is_atomic(tmp_path, monkeypatch):
+    """A write cut off part way (a kill during torch.save) leaves the
+    previous `.net` whole and loadable, and no half-written file under its
+    name: the harness's kill-and-resume arm reads it back."""
+    path = str(tmp_path / "model.net")
+    net = models.init_weights(models.build_network("coord", "MLE", tiny=True),
+                              torch.Generator().manual_seed(0))
+    compat.save_net(path, net)
+    before = compat.load_net(path)
+    real_save = torch.save
+
+    def cut_off(obj, f):
+        real_save(obj, f)
+        with open(f, "r+b") as fh:
+            fh.truncate(100)
+        raise KeyboardInterrupt("killed mid-write")
+
+    monkeypatch.setattr(torch, "save", cut_off)
+    with pytest.raises(KeyboardInterrupt):
+        compat.save_net(path, models.build_network("coord", "MLE", tiny=True))
+    after = compat.load_net(path)
+    assert after.keys() == before.keys()
+    assert all(torch.equal(after[k], before[k]) for k in before)
