@@ -80,9 +80,15 @@ Phases:
            (K1-shard-stats, -apply, K1-bwd-shard-sums, -apply) at every
            Conv->GN input of the net, B=4, split into 2 and 4 row blocks, each
            against its plain twin and the blocks merged against the plain K1
-           twin on the whole image, forward and backward, timed at 2 blocks
-           beside the bytes bound, the split design's own traffic and the
-           unsharded K1 on the whole image; (2) two ranks sharing the card
+           twin on the whole image, forward and backward; at 2 blocks in f32
+           and bf16 (bf16 held against the twins too): the CUDA kernels one
+           call of each entry launches (torch.profiler; one), each entry's
+           time with the L2 evicted beside its bytes bound, each direction's
+           warm pair (one graph: a flush, the first entry, a copy of the
+           gathered tensor, the second entry) beside the pair bounds and the
+           split's own traffic, and in f32 the unsharded K1 on the whole
+           image and PyTorch's sum, copy and add of the same bytes; (2) two
+           ranks sharing the card
            over gloo, spatial 2, global B=4: the forward and one step's loss
            and gradient
            against one process (the parallel phase's tolerance), each
@@ -278,6 +284,7 @@ SPATIAL_BATCH = 4
 SHARD_ENTRIES = ("groupnorm_shard_stats", "groupnorm_shard_apply",
                  "groupnorm_shard_backward_sums", "groupnorm_shard_backward_apply")
 S_GATHER = 2
+YARDSTICKS = ("sum", "copy", "add")  # PyTorch's passes over an entry's bytes (f32)
 
 
 def log(msg: str) -> None:
@@ -2374,15 +2381,15 @@ class Smoke:
         Conv->GN input of the coord net at 480x720 (f32), split into 2 and 4
         row blocks; each entry against its twin on the same inputs, the
         blocks merged against the plain K1 twin on the whole image; at 2
-        blocks each entry timed (device time, L2 evicted) beside its twin,
-        its bytes bound, the split design's own traffic and the unsharded
-        K1 (planned design) on the whole image."""
+        blocks, in f32 and in bf16, `_shard_times` (the kernels per call,
+        each entry and each direction's warm pair timed beside the bounds);
+        the totals over the net's 28 calls and the kernels line's rows."""
         import torch
 
         from crossloc_tpu_torch import ops
 
         flush_buf = torch.empty(FLUSH_BYTES // 4, device="cuda")
-        flush = flush_buf.zero_
+        flush = flush_buf.zero_  # the L2 evicted by a write, as in the kernels phase
         gen = torch.Generator(device="cuda").manual_seed(11)
         worst = {n: 0.0 for n in SHARD_ENTRIES}
         rows = []
@@ -2449,88 +2456,223 @@ class Smoke:
                 if not ok:
                     raise AssertionError(f"cross-shard entries disagree at C={C} {H}x{W} {S} "
                                          f"blocks relu={relu}")
-            # timing at 2 blocks: one block's calls, as one rank of spatial 2 runs them
-            xs = [t.contiguous() for t in x.chunk(2, 1)]
-            d0 = dy.chunk(2, 1)[0].contiguous()
-            st = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
-            _, so = ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu)
-            sums = torch.stack([ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu)]
-                               * 2)
-            calls = [
-                (lambda: ops.group_norm_shard_stats(xs[0], G),
-                 lambda: ops.group_norm_shard_stats_plain(xs[0], G)),
-                (lambda: ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu),
-                 lambda: ops.group_norm_shard_apply_plain(xs[0], s, b, st, G, 1e-5, relu)),
-                (lambda: ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu),
-                 lambda: ops.group_norm_shard_backward_sums_plain(xs[0], s, b, so, d0, G, relu)),
-                (lambda: ops.group_norm_shard_backward_apply(xs[0], s, b, so, d0, sums, 0, G,
-                                                             H * W, relu),
-                 lambda: ops.group_norm_shard_backward_apply_plain(xs[0], s, b, so, d0, sums, 0,
-                                                                   G, H * W, relu))]
-            kern = device_ms([c[0] for c in calls], flush)
-            plain = device_ms([c[1] for c in calls], flush, n=5)
+            # timing at 2 blocks: one block's calls, as one rank of spatial 2
+            # runs them, in f32 (the kernels line's rows) and in bf16
+            row = dict(C=C, H=H // 2, W=W, B=B, relu=relu, per_forward=count)
+            row.update(self._shard_times(x, dy, s, b, G, relu, flush, C in (32, 512) and relu))
+            del whole, dx_w
+            # bf16: dy zero near the kink of the bf16 input's own pre-activation
+            x = x.bfloat16()
+            pre = ops.group_norm_relu_plain(x, s, b, G, 1e-5, False)
+            dy = (dy * (pre.abs() > 1e-3)).bfloat16()
+            del pre
+            row["bfloat16"] = self._shard_times(x, dy, s, b, G, relu, flush,
+                                                C in (32, 512) and relu)
+            rows.append(row)
+            del x, dy
+        keys = ("fwd_bound_ms", "fwd_split_ms", "bwd_bound_ms", "bwd_split_ms", "warm_fwd_ms",
+                "warm_bwd_ms", "copy_fwd_ms", "copy_bwd_ms")
+        tot, pair = {}, {}
+        for dname, get in (("float32", lambda r: r), ("bfloat16", lambda r: r["bfloat16"])):
+            tot[dname] = {k: {n: sum(r["per_forward"] * get(r)[k][n] for r in rows)
+                              for n in SHARD_ENTRIES} for k in ("ms", "bound_ms")}
+            pair[dname] = {k: sum(r["per_forward"] * get(r)[k] for r in rows) for k in keys}
+            t, p = tot[dname]["ms"], pair[dname]
+            log(f"cross-shard entries over one {dname} forward and backward's 28 calls of one "
+                f"rank of spatial 2 (B={B}, a 240x720 block of 480x720), device time: cold (L2 "
+                f"evicted before each call) "
+                + ", ".join(f"{n} {t[n]:.4f} ms (bound {tot[dname]['bound_ms'][n]:.4f})"
+                            for n in SHARD_ENTRIES)
+                + f"; forward pair cold {t[SHARD_ENTRIES[0]] + t[SHARD_ENTRIES[1]]:.4f} ms, warm "
+                f"{p['warm_fwd_ms']:.4f} ms (one graph: flush, stats, the gathered copy "
+                f"{p['copy_fwd_ms']:.4f} ms, apply) against one read + one write "
+                f"{p['fwd_bound_ms']:.4f} ms and the split's own traffic {p['fwd_split_ms']:.4f} "
+                f"ms; backward pair cold {t[SHARD_ENTRIES[2]] + t[SHARD_ENTRIES[3]]:.4f} ms, warm "
+                f"{p['warm_bwd_ms']:.4f} ms (copy {p['copy_bwd_ms']:.4f} ms) against "
+                f"{p['bwd_bound_ms']:.4f} / {p['bwd_split_ms']:.4f} ms")
+        f32 = tot["float32"]
+        plain = {n: sum(r["per_forward"] * r["plain_ms"][n] for r in rows) for n in SHARD_ENTRIES}
+        extra = {k: sum(r["per_forward"] * r[k] for r in rows)
+                 for k in ("k1_whole_ms", "library_stats_ms")}
+        extra["yardstick_ms"] = {k: sum(r["per_forward"] * r["yardstick_ms"][k] for r in rows)
+                                 for k in YARDSTICKS}
+        log(f"  f32 plain twins {', '.join(f'{n} {plain[n]:.4f} ms' for n in SHARD_ENTRIES)}; "
+            f"the unsharded K1 on the whole images {extra['k1_whole_ms']:.4f} ms; torch.var_mean "
+            f"in place of the stats {extra['library_stats_ms']:.4f} ms; PyTorch's passes over "
+            f"the same blocks: "
+            + ", ".join(f"{k} {extra['yardstick_ms'][k]:.4f} ms" for k in YARDSTICKS))
+        per_call = {n: sorted({t["kernels_per_call"][n] for r in rows
+                               for t in (r, r["bfloat16"]) if t["kernels_per_call"]})
+                    for n in SHARD_ENTRIES}
+        with open(os.path.join(self.out_dir, "k1_shard_shapes.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows,
+                           per_forward=tot, pairs=pair, plain_ms=plain, extra=extra,
+                           worst=worst, kernels_per_call=per_call), f, indent=1)
+        sources = dict(zip(SHARD_ENTRIES, ["crossloc_tpu/ops/pallas_groupnorm.py:57"] * 2
+                           + ["crossloc_tpu/ops/pallas_groupnorm.py:141"] * 2))
+        # no single library call computes the apply or the backward entries
+        library = dict.fromkeys(SHARD_ENTRIES, None)
+        library[SHARD_ENTRIES[0]] = extra["library_stats_ms"]
+        for n in SHARD_ENTRIES:
+            self.kernels[n] = dict(
+                name=n, route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
+                replaces=sources[n], max_abs_err=worst[n], ms=f32["ms"][n], plain_ms=plain[n],
+                library_ms=library[n], bound_ms=f32["bound_ms"][n], bound_by="bytes",
+                cuda_kernels_per_call=per_call[n][0])
+
+    @staticmethod
+    def _kernels_per_call(fns) -> list:
+        """The names of the CUDA kernels one call of each fn launches: one
+        torch.profiler session, the calls separated by a marker kernel (a
+        fill of a one-element tensor); tried twice where the trace lost a
+        marker."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        mark = torch.empty(1, device="cuda")
+        for fn in fns:
+            fn()
+        torch.cuda.synchronize()
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for fn in fns:
+                    mark.fill_(1.0)
+                    fn()
+                mark.fill_(1.0)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            groups = []
+            for e in events:
+                if "fill" in e.name.lower():
+                    groups.append([])
+                elif groups:
+                    groups[-1].append(e.name)
+            if len(groups) == len(fns) + 1 and not groups[-1]:
+                return groups[:-1]
+        raise AssertionError(f"the profiler's trace lost markers: {[e.name for e in events]}")
+
+    def _shard_times(self, x, dy, s, b, G, relu, flush, count_kernels):
+        """One rank's block of spatial 2 (the upper half of x's rows): each
+        cross-shard entry's device time with the L2 evicted before every call
+        (CUDA graphs), its bytes bound, and each direction's warm pair (one
+        graph a repetition: a flush, the first entry, a device copy of this
+        rank's part of the gathered tensor standing in for the exchange, the
+        second entry) beside the pair bounds; in f32 also the plain twins, the
+        unsharded K1 on the whole image, torch.var_mean in place of the stats,
+        and PyTorch's sum, copy and add of the block as yardsticks. With `count_kernels`, the CUDA kernels of one call of each
+        entry (torch.profiler), which must be one. The bf16 entries are held
+        against their twins here (f32 outputs to 1e-4 of their scale, bf16
+        ones to one rounding: 1e-2 + 2^-7 relative)."""
+        import torch
+
+        from crossloc_tpu_torch import ops
+
+        f32 = x.dtype == torch.float32
+        B, H, W, C = x.shape
+        xs = [t.contiguous() for t in x.chunk(2, 1)]
+        d0 = dy.chunk(2, 1)[0].contiguous()
+        st = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
+        _, so = ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu)
+        own = ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu)
+        sums = torch.stack([own, own])
+        entries = [
+            (lambda: ops.group_norm_shard_stats(xs[0], G),
+             lambda: ops.group_norm_shard_stats_plain(xs[0], G)),
+            (lambda: ops.group_norm_shard_apply(xs[0], s, b, st, G, 1e-5, relu),
+             lambda: ops.group_norm_shard_apply_plain(xs[0], s, b, st, G, 1e-5, relu)),
+            (lambda: ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu),
+             lambda: ops.group_norm_shard_backward_sums_plain(xs[0], s, b, so, d0, G, relu)),
+            (lambda: ops.group_norm_shard_backward_apply(xs[0], s, b, so, d0, sums, 0, G, H * W,
+                                                         relu),
+             lambda: ops.group_norm_shard_backward_apply_plain(xs[0], s, b, so, d0, sums, 0, G,
+                                                               H * W, relu))]
+        if not f32:
+            for i, (n, (kern, twin)) in enumerate(zip(SHARD_ENTRIES, entries)):
+                for got, ref in zip(*(o if isinstance(o, tuple) else (o,)
+                                      for o in (kern(), twin()))):
+                    bf16_out = got.dtype == x.dtype
+                    got, ref = got.float(), ref.float()
+                    err = (got - ref).abs()
+                    if bf16_out:  # y, dx: one bf16 rounding apart
+                        ok = bool((err <= 1e-2 + 2.0**-7 * ref.abs()).all())
+                    elif i == 0:  # (count, mean, M2): each to 1e-4 of itself
+                        ok = bool((err <= 1e-4 * ref.abs().clamp(min=1.0)).all())
+                    else:  # f32 statistics and sums: to 1e-4 of their scale
+                        ok = float(err.max()) <= 1e-4 * max(1.0, float(ref.abs().max()))
+                    if not ok:
+                        raise AssertionError(f"{n} disagrees with its twin in bf16 at C={C} "
+                                             f"{H // 2}x{W} B={B} relu={relu}: max |diff| "
+                                             f"{float(err.max()):.3e}")
+        counts = {}
+        if count_kernels:
+            for n, names in zip(SHARD_ENTRIES, self._kernels_per_call([e[0] for e in entries])):
+                counts[n] = len(names)
+                log(f"  {n} C={C} {H // 2}x{W} B={B} {str(x.dtype)[6:]}: one call launches "
+                    f"{len(names)} CUDA kernel(s): {sorted(set(names))}")
+                if len(names) != 1:
+                    raise AssertionError(f"{n} launched {len(names)} CUDA kernels in one call")
+        gfwd = st.clone()
+        gbwd = sums.clone()
+
+        def fwd_pair():
+            gfwd[0].copy_(ops.group_norm_shard_stats(xs[0], G))
+            ops.group_norm_shard_apply(xs[0], s, b, gfwd, G, 1e-5, relu)
+
+        def bwd_pair():
+            gbwd[0].copy_(ops.group_norm_shard_backward_sums(xs[0], s, b, so, d0, G, relu))
+            ops.group_norm_shard_backward_apply(xs[0], s, b, so, d0, gbwd, 0, G, H * W, relu)
+
+        kern = device_ms([e[0] for e in entries], flush)
+        warm_fwd, warm_bwd, copy_fwd, copy_bwd = device_ms(
+            [fwd_pair, bwd_pair, lambda: gfwd[0].copy_(st[1]), lambda: gbwd[0].copy_(own)], flush)
+        n_el, item = xs[0].numel(), x.element_size()
+        # each entry's least traffic: what it must read and write once
+        moved = [n_el * item + B * G * 3 * 4,
+                 2 * n_el * item + S_GATHER * B * G * 3 * 4 + 2 * C * 4,
+                 2 * n_el * item + B * 2 * C * 4,
+                 3 * n_el * item + S_GATHER * B * 2 * C * 4 + 2 * C * 4]
+        ops_per = [4, 6, 8, 10]  # fp32 operations per element of x
+        bound = [1e3 * max(m / HBM_BYTES_PER_S, o * n_el / FP32_FLOPS)
+                 for m, o in zip(moved, ops_per)]
+        out = dict(ms=dict(zip(SHARD_ENTRIES, kern)), bound_ms=dict(zip(SHARD_ENTRIES, bound)),
+                   fwd_bound_ms=1e3 * 2 * n_el * item / HBM_BYTES_PER_S,
+                   fwd_split_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
+                   bwd_bound_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
+                   bwd_split_ms=1e3 * 5 * n_el * item / HBM_BYTES_PER_S,
+                   warm_fwd_ms=warm_fwd, warm_bwd_ms=warm_bwd, copy_fwd_ms=copy_fwd,
+                   copy_bwd_ms=copy_bwd, kernels_per_call=counts)
+        if f32:
+            plain = device_ms([e[1] for e in entries], flush, n=5)
             k1_whole = device_ms([lambda: ops.group_norm_relu(x, s, b, G, 1e-5, relu)], flush)[0]
             # the one library call that computes an entry's function: the stats'
             # per-(image, group) mean and variance (M2 is variance x count)
             lib_stats = device_ms([lambda: torch.var_mean(
                 xs[0].view(B, H // 2 * W, G, C // G), dim=(1, 3), correction=0)], flush)[0]
-            n_el, item = xs[0].numel(), 4
-            # each entry's least traffic: what it must read and write once
-            moved = [n_el * item + B * G * 3 * 4,
-                     2 * n_el * item + S_GATHER * B * G * 3 * 4 + 2 * C * 4,
-                     2 * n_el * item + B * 2 * C * 4,
-                     3 * n_el * item + S_GATHER * B * 2 * C * 4 + 2 * C * 4]
-            ops_per = [4, 6, 8, 10]  # fp32 operations per element of x
-            bound = [1e3 * max(m / HBM_BYTES_PER_S, o * n_el / FP32_FLOPS)
-                     for m, o in zip(moved, ops_per)]
-            row = dict(C=C, H=H // 2, W=W, B=B, relu=relu, per_forward=count,
-                       ms=dict(zip(SHARD_ENTRIES, kern)), plain_ms=dict(zip(SHARD_ENTRIES, plain)),
-                       bound_ms=dict(zip(SHARD_ENTRIES, bound)),
-                       fwd_bound_ms=1e3 * 2 * n_el * item / HBM_BYTES_PER_S,
-                       fwd_split_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
-                       bwd_bound_ms=1e3 * 3 * n_el * item / HBM_BYTES_PER_S,
-                       bwd_split_ms=1e3 * 5 * n_el * item / HBM_BYTES_PER_S,
-                       k1_whole_ms=k1_whole, library_stats_ms=lib_stats)
-            rows.append(row)
-            log(f"  cross-shard time C={C} {H // 2}x{W} (a block of {H}) B={B} relu={relu}: "
-                + ", ".join(f"{n} {kern[i]:.4f} ms (plain {plain[i]:.4f}, bound {bound[i]:.4f})"
-                            for i, n in enumerate(SHARD_ENTRIES))
-                + f"; forward pair {kern[0] + kern[1]:.4f} ms against one read of x and one "
-                f"write of y {row['fwd_bound_ms']:.4f} ms and the split design's two reads "
-                f"{row['fwd_split_ms']:.4f} ms; backward pair {kern[2] + kern[3]:.4f} ms against "
-                f"{row['bwd_bound_ms']:.4f} / {row['bwd_split_ms']:.4f} ms; unsharded K1 on the "
-                f"whole image {k1_whole:.4f} ms; torch.var_mean on the block {lib_stats:.4f} ms")
-            del x, dy, whole, dx_w
-        tot = {k: {n: sum(r["per_forward"] * r[k][n] for r in rows) for n in SHARD_ENTRIES}
-               for k in ("ms", "plain_ms", "bound_ms")}
-        pair = {k: sum(r["per_forward"] * r[k] for r in rows)
-                for k in ("fwd_bound_ms", "fwd_split_ms", "bwd_bound_ms", "bwd_split_ms",
-                          "k1_whole_ms", "library_stats_ms")}
-        log(f"cross-shard entries over one f32 forward and backward's 28 calls of one rank of "
-            f"spatial 2 (B={B}, a 240x720 block of 480x720), device time: "
-            + ", ".join(f"{n} {tot['ms'][n]:.4f} ms (plain {tot['plain_ms'][n]:.4f}, bound "
-                        f"{tot['bound_ms'][n]:.4f})" for n in SHARD_ENTRIES)
-            + f"; forward pair {tot['ms'][SHARD_ENTRIES[0]] + tot['ms'][SHARD_ENTRIES[1]]:.4f} ms "
-            f"against one read + one write {pair['fwd_bound_ms']:.4f} ms and the split's own "
-            f"traffic {pair['fwd_split_ms']:.4f} ms; backward pair "
-            f"{tot['ms'][SHARD_ENTRIES[2]] + tot['ms'][SHARD_ENTRIES[3]]:.4f} ms against "
-            f"{pair['bwd_bound_ms']:.4f} / {pair['bwd_split_ms']:.4f} ms; the unsharded K1 on "
-            f"the whole images {pair['k1_whole_ms']:.4f} ms; torch.var_mean in place of the "
-            f"stats {pair['library_stats_ms']:.4f} ms")
-        with open(os.path.join(self.out_dir, "k1_shard_shapes.json"), "w") as f:
-            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows,
-                           per_forward=tot, pairs=pair, worst=worst), f, indent=1)
-        sources = dict(zip(SHARD_ENTRIES, ["crossloc_tpu/ops/pallas_groupnorm.py:57"] * 2
-                           + ["crossloc_tpu/ops/pallas_groupnorm.py:141"] * 2))
-        # no single library call computes the apply or the backward entries
-        library = dict.fromkeys(SHARD_ENTRIES, None)
-        library[SHARD_ENTRIES[0]] = pair["library_stats_ms"]
-        for n in SHARD_ENTRIES:
-            self.kernels[n] = dict(
-                name=n, route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
-                replaces=sources[n], max_abs_err=worst[n], ms=tot["ms"][n],
-                plain_ms=tot["plain_ms"][n], library_ms=library[n], bound_ms=tot["bound_ms"][n],
-                bound_by="bytes")
+            # PyTorch's own passes over the same bytes, yardsticks beside the
+            # entries: a sum of x (the stats' read), a copy of x (the apply's
+            # read and write) and x + dy (the backward apply's three tensors)
+            buf = torch.empty_like(xs[0])
+            yard = device_ms([lambda: xs[0].sum(), lambda: buf.copy_(xs[0]),
+                              lambda: torch.add(xs[0], d0, out=buf)], flush)
+            out.update(plain_ms=dict(zip(SHARD_ENTRIES, plain)), k1_whole_ms=k1_whole,
+                       library_stats_ms=lib_stats, yardstick_ms=dict(zip(YARDSTICKS, yard)))
+        log(f"  cross-shard time C={C} {H // 2}x{W} (a block of {H}) B={B} {str(x.dtype)[6:]} "
+            f"relu={relu} [{ops.groupnorm._shard_plan(B, H // 2 * W, C, G, x.dtype, 1)}; "
+            f"backward {ops.groupnorm._shard_plan(B, H // 2 * W, C, G, x.dtype, 2)}]: "
+            + ", ".join(f"{n} {kern[i]:.4f} ms (bound {bound[i]:.4f})"
+                        for i, n in enumerate(SHARD_ENTRIES))
+            + f"; forward pair cold {kern[0] + kern[1]:.4f} ms, warm {warm_fwd:.4f} ms (copy "
+            f"{copy_fwd:.4f}) against one read of x and one write of y "
+            f"{out['fwd_bound_ms']:.4f} ms and the split's two reads {out['fwd_split_ms']:.4f} "
+            f"ms; backward pair cold {kern[2] + kern[3]:.4f} ms, warm {warm_bwd:.4f} ms (copy "
+            f"{copy_bwd:.4f}) against {out['bwd_bound_ms']:.4f} / {out['bwd_split_ms']:.4f} ms"
+            + (f"; plain {', '.join(f'{p:.4f}' for p in plain)} ms; unsharded K1 on the whole "
+               f"image {k1_whole:.4f} ms; torch.var_mean on the block {lib_stats:.4f} ms; "
+               f"PyTorch's sum, copy and x + dy of the block {', '.join(f'{t:.4f}' for t in yard)}"
+               f" ms" if f32 else ""))
+        return out
 
     def _run_cli(self, main, work, args):
         """A training CLI's `main(args)` in process, in `work`, with the launch
@@ -3112,7 +3254,8 @@ class Smoke:
             n = e.name.lower()
             key = ("K1-bwd groupnorm" if "gnb_" in n
                    else "K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize",
-                                                               "gn_apply", "gn_cluster"))
+                                                               "gn_apply", "gn_cluster",
+                                                               "gn_shard"))
                    else "conv" if any(k in n for k in ("fprop", "dgrad", "wgrad", "conv", "xmma",
                                                       "cutlass", "implicit_gemm", "cudnn"))
                    else "other")

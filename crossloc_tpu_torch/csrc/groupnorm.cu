@@ -1263,176 +1263,533 @@ int launch_cluster_backward(const void* x, const void* dy, const float* gamma, c
 // Cross-shard design (the mesh's "spatial" axis, parallel/spatial.py)
 // ---------------------------------------------------------------------------
 //
-// On a height shard an image's rows are split over the ranks of a spatial
-// group, so a norm's per-(image, group) statistics, and its backward's
-// per-(image, channel) sums, span ranks. Neither unsharded design can take
-// that: the cluster designs compute and apply in one launch, and the
-// three-pass and four-kernel designs merge only the chunks of their own
-// tensor. So the work splits at the exchange, into four entries, each a
-// launch sequence on the caller's stream; parallel/spatial.py all-gathers
-// over the spatial group between them:
-//   K1-shard-stats      gn_stats_kernel's per-chunk Welford partials, then
-//                       gn_shard_stats_kernel merges each (image, group)'s
-//                       chunk x channel partials (Chan) into (count, mean,
-//                       M2): B * G * 3 floats to exchange, not the partials.
-//   K1-shard-apply      gn_shard_merge_kernel merges the ranks' (count, mean,
-//                       M2) with Chan's formula in rank order, so every rank
-//                       gets the same bits, clamps var at 0, writes (mu,
-//                       rstd) to `stats` for the backward and the affine of
-//                       gn_apply_kernel, which writes y.
-//   K1-bwd-shard-sums   gnb_partials_kernel and gnb_image_sums_kernel: per
-//                       (image, channel), the sums of gh and gh * xhat over
-//                       the shard's rows.
-//   K1-bwd-shard-apply  gnb_shard_sums_kernel adds the ranks' sums in rank
-//                       order; gnb_batch_sums_kernel gives dgamma and dbeta
-//                       from this shard's own sums (the training step's
-//                       all-reduce over the ranks adds the shards);
-//                       gnb_finalize_kernel with the image's whole H*W as
-//                       the count (its dgamma row of blocks not launched);
-//                       gnb_apply_kernel writes dx.
-// Bound: bytes, as the unsharded designs. Each direction reads x (and dy)
-// twice, once for the statistics and once for the apply: one read more
-// than the bound, the price of applying only after the exchange.
+// Replaces, for an image whose rows are split over the ranks of a spatial
+// group, crossloc_tpu/ops/pallas_groupnorm.py::_kernel (:57; on a height
+// shard the JAX package's jnp GroupNorm gets XLA's cross-shard reductions)
+// and the backward that pallas_groupnorm.py:141 takes with jax.vjp. A
+// norm's per-(image, group) statistics, and its backward's per-(image,
+// channel) sums, span ranks, so each direction splits at the exchange into
+// two entries, each ONE kernel on the caller's stream; parallel/spatial.py
+// all-gathers over the spatial group between them:
+//   K1-shard-stats      gn_shard_stats_cluster_kernel: (count, mean, M2)
+//                       per (image, group) of the shard's rows, B * G * 3
+//                       floats.
+//   K1-shard-apply      gn_shard_apply_kernel: the ranks' statistics merged
+//                       (Chan) in rank order, var clamped at 0, (mu, rstd)
+//                       to `stats` for the backward, and y.
+//   K1-bwd-shard-sums   gnb_shard_sums_cluster_kernel: per (image, channel)
+//                       the sums of gh and gh * xhat over the shard's rows,
+//                       [B, 2, C].
+//   K1-bwd-shard-apply  gnb_shard_apply_kernel: the ranks' sums added in
+//                       rank order, the group coefficients with the whole
+//                       image's H*W as the count, this shard's dscale and
+//                       dbias (the training step's all-reduce adds the
+//                       shards), and dx.
+// ops/groupnorm.py::_shard_plan cuts a shard into channel blocks of whole
+// groups and contiguous row ranges; a thread holds V channels (16 bytes) of
+// its column of the block and strides over the range's rows with 16-byte
+// loads, in batches whose loads are in flight together.
+// The two reductions run one thread block cluster per (image, channel
+// block), its CTAs over the image's row ranges in rank order; the block is
+// as wide as clusters of up to 16 allow while the grid still fills the
+// card. Each CTA sums per channel in registers, then over its threads in a
+// fixed order, pushes its sums into rank 0's shared memory (distributed
+// shared memory stores), and after one cluster barrier rank 0 adds the
+// ranks in rank order and writes the result: nothing else reaches device
+// memory, and without float atomics two runs give the same bits. The
+// statistics are sums around a per-channel pivot, the shard's first row,
+// read alike by every CTA: no division in the loop, and the CTAs' sums add
+// as plain sums. Rank 0 forms per channel mean = pivot + s1 / n and the
+// centred M2 = s2 - s1 * s1 / n, then per group M2 = sum_c M2_c + n (mean_c -
+// mean_g)^2: a centred variance (never E[x^2] - mu^2), which the ranks' Chan
+// merge needs.
+// The applies are plain launches over (row range, channel block, image),
+// the block whole rows where a CTA's threads span them, so each CTA streams
+// contiguous memory. A CTA loads its first batch of rows, then forms its
+// groups' constants from the gathered tensor (S * 3 floats a group forward,
+// S * 2 a channel backward) while those loads are in flight, and writes
+// from registers: no table in device memory. The CTAs of row range 0 also
+// write `stats` (forward), and for image 0 dscale and dbias (backward).
+// Bound: bytes. The split reads x (and dy) before the exchange and again
+// after it: one read more than the unsharded bound. Between a rank's two
+// entries the step runs only an all-gather of a few kilobytes, so where one
+// shard's tensors fit the 50 MB L2 the apply's read of x can hit it. No
+// cache policy is set: measured as one graph, the pair after an evicting
+// write saves about a tenth of the two entries timed cold, and the applies
+// run near a plain copy of their bytes (PERF.md). stem1 and stem2 (88.5 and
+// 44 MB a rank at B=4 in f32) cannot stay in the L2: their bound is the split's own
+// traffic, x read twice forward, x and dy twice backward.
 
-// One block per (group, image): the chunk x channel Welford partials of
-// the group merged into out[b, g] = (count, mean, M2).
-__global__ void gn_shard_stats_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                      int HW, int C, int G, int chunk_rows, int nchunks) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  float n, mean, m2;
-  merge_group_partials(part, b, g, HW, C, G, chunk_rows, nchunks, n, mean, m2);
-  if (threadIdx.x == 0) {
-    float* o = out + ((size_t)b * G + g) * 3;
-    o[0] = n;
-    o[1] = mean;
-    o[2] = m2;
+constexpr int kShardMaxThreads = 512;       // a reduction CTA's most threads
+constexpr int kShardApplyMaxThreads = 256;  // an apply CTA's
+// rows a thread loads before it uses any of them, in the loops whose loads
+// the compiler would not keep in flight together (measured: PERF.md); an
+// apply's first batch is loaded before its prologue
+constexpr int kSumsBatch = 4;      // of x and of dy
+constexpr int kApplyBatch = 8;
+constexpr int kBwdApplyBatch = 4;  // of x and of dy
+
+// 16 bytes of a row as loaded (4 f32 or 8 bf16), unpacked where they are used,
+// so a batch of loads holds 4 registers a row
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Rows r0, r0 + step, ... (U of them, those below row1) of a thread's column.
+template <int U, typename T>
+__device__ __forceinline__ void load_batch(uint4 (&raw)[U], const T* p, int r0, int row1,
+                                           int step, int C) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r0 + u * step < row1) raw[u] = load_raw(p + (size_t)(r0 + u * step) * C);
+}
+
+// The same rows of x and of dy, a row of each in turn.
+template <int U, typename T>
+__device__ __forceinline__ void load_batch2(uint4 (&rx)[U], uint4 (&rd)[U], const T* px,
+                                            const T* pd, int r0, int row1, int step, int C) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (r0 + u * step < row1) {
+      rx[u] = load_raw(px + (size_t)(r0 + u * step) * C);
+      rd[u] = load_raw(pd + (size_t)(r0 + u * step) * C);
+    }
   }
 }
 
-// One warp per (group, image): gathered [S, B, G, 3] merged in rank order,
-// then (mu, rstd) to stats [B, G, 2] and the affine [B, 3, C] of
-// gn_apply_kernel (gamma * rstd, mu, beta).
-__global__ void gn_shard_merge_kernel(const float* __restrict__ gathered,
-                                      const float* __restrict__ gamma,
-                                      const float* __restrict__ beta, float* __restrict__ affine,
-                                      float* __restrict__ stats, int S, int B, int C, int G,
-                                      float eps) {
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int gs = C / G;
-  __shared__ float s_mu, s_rstd;
-  if (threadIdx.x == 0) {
-    float n = 0.f, mean = 0.f, m2 = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* p = gathered + (((size_t)s * B + b) * G + g) * 3;
-      chan_merge(n, mean, m2, p[0], p[1], p[2]);
+__device__ __forceinline__ void unpack(const float*, uint4 r, float* out) {
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void unpack(const __nv_bfloat16*, uint4 r, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// The same layout as the reductions' (ops/groupnorm.py::_shard_smem
+// computes it too): the reduction scratch, this CTA's NA = 2 sums per
+// channel, every rank's (pushed into rank 0), and the channels' pivots.
+size_t shard_smem_bytes(int V, int cb, int threads, int cs) {
+  const int vpr = cb / V;
+  const int slots = (32 % vpr) == 0 ? threads / 32 : threads / vpr;
+  return 4 * (2 * (size_t)slots * cb + 3 * (size_t)cb + 2 * (size_t)cs * cb);
+}
+
+// The cluster's per-channel sums, in rank 0: this CTA's NA arrays of
+// per-thread partials summed over its threads into `part`, pushed into slot
+// `rank` of rank 0's xch, one cluster barrier. The caller arrived on the
+// cluster barrier at its start (so every CTA runs before a peer writes to
+// it). True in rank 0, whose xch then holds every rank's NA * cb sums.
+template <int V, int NA>
+__device__ __forceinline__ bool sums_to_rank0(float (&acc)[NA][V], float* red, float* part,
+                                              float* xch, int vpr, int cb) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  block_channel_sums<V, NA>(acc, red, part, vpr, cb);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  float* dst = cluster.map_shared_rank(xch, 0) + rank * NA * cb;
+  for (int i = threadIdx.x; i < NA * cb; i += blockDim.x) dst[i] = part[i];
+  cluster.sync();
+  return rank == 0;
+}
+
+// One cluster of gridDim.x CTAs per (image blockIdx.z, channel block
+// blockIdx.y); CTA `rank` sums rows [rank * rows_per_cta, +rows_per_cta) of
+// the shard. Rank 0 writes out[b, g] = (count, mean, M2) of the block's
+// groups.
+template <typename T>
+__global__ void __launch_bounds__(kShardMaxThreads)
+    gn_shard_stats_cluster_kernel(const T* __restrict__ x, float* __restrict__ out, int HW,
+                                  int C, int gs, int cb, int rows_per_cta) {
+  constexpr int V = Vec<T>::N;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x, cs = gridDim.x;  // the cluster spans the grid's x
+  const int c0 = blockIdx.y * cb;
+  const int b = blockIdx.z;
+  const int row1 = min(rank * rows_per_cta + rows_per_cta, HW);
+  const int vpr = cb / V, rslots = blockDim.x / vpr;
+  const int cv = tid % vpr, slot = tid / vpr;
+
+  // shared memory: [red | part | xch | pv]
+  extern __shared__ float sh[];
+  float* red = sh;                               // 2 * red_slots * cb
+  float* part = red + 2 * red_slots(vpr) * cb;   // 2 * cb
+  float* xch = part + 2 * cb;                    // cs * 2 * cb, read in rank 0
+  float* pv = xch + 2 * cs * cb;                 // cb: the pivots, read in rank 0
+
+  const T* xb = x + (size_t)b * HW * C + c0;
+  float piv[V], acc[2][V];
+  load_vec(xb + cv * V, piv);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (slot == 0) pv[cv * V + k] = piv[k];
+    acc[0][k] = acc[1][k] = 0.f;
+  }
+#pragma unroll 8
+  for (int r = rank * rows_per_cta + slot; r < row1; r += rslots) {
+    float v[V];
+    load_vec(xb + (size_t)r * C + cv * V, v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float d = v[k] - piv[k];
+      acc[0][k] += d;
+      acc[1][k] = fmaf(d, d, acc[1][k]);
     }
-    const float var = fmaxf(m2 / n, 0.f);
-    s_mu = mean;
-    s_rstd = rsqrtf(var + eps);
-    stats[((size_t)b * G + g) * 2] = s_mu;
-    stats[((size_t)b * G + g) * 2 + 1] = s_rstd;
+  }
+  if (!sums_to_rank0<V, 2>(acc, red, part, xch, vpr, cb)) return;
+
+  // rank 0: per channel the image's mean and centred M2 (into part), then
+  // per group the channels merged around the group mean
+  const float n = static_cast<float>(HW);
+  for (int c = tid; c < cb; c += blockDim.x) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < cs; ++r) {
+      s1 += xch[r * 2 * cb + c];
+      s2 += xch[r * 2 * cb + cb + c];
+    }
+    const float q = s1 / n;
+    part[c] = pv[c] + q;
+    part[cb + c] = fmaxf(s2 - s1 * q, 0.f);
   }
   __syncthreads();
-  float* a_out = affine + (size_t)b * 3 * C;
-  for (int k = threadIdx.x; k < gs; k += blockDim.x) {
-    const int c = g * gs + k;
-    a_out[c] = gamma[c] * s_rstd;
-    a_out[C + c] = s_mu;
-    a_out[2 * C + c] = beta[c];
+  for (int g = tid; g < cb / gs; g += blockDim.x) {
+    float m = 0.f;
+    for (int c = g * gs; c < (g + 1) * gs; ++c) m += part[c];
+    m /= static_cast<float>(gs);
+    float q = 0.f;
+    for (int c = g * gs; c < (g + 1) * gs; ++c) {
+      const float d = part[c] - m;
+      q += fmaf(n * d, d, part[cb + c]);
+    }
+    float* o = out + ((size_t)b * (C / gs) + c0 / gs + g) * 3;
+    o[0] = n * static_cast<float>(gs);
+    o[1] = m;
+    o[2] = q;
   }
 }
 
-// sums[i] = sum over the S ranks, in rank order, of gathered[s, i]; n = B * 2 * C.
-__global__ void gnb_shard_sums_kernel(const float* __restrict__ gathered,
-                                      float* __restrict__ sums, int S, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float t = 0.f;
-  for (int s = 0; s < S; ++s) t += gathered[(size_t)s * n + i];
-  sums[i] = t;
+// One CTA per (row range, channel block) = blockIdx.x and image blockIdx.y:
+// the ranks' (count, mean, M2) of the block's groups merged in rank order,
+// then y over the range's rows.
+template <typename T>
+__global__ void __launch_bounds__(kShardApplyMaxThreads)
+    gn_shard_apply_kernel(const T* __restrict__ x, T* __restrict__ y,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          const float* __restrict__ gathered, float* __restrict__ stats, int S,
+                          int B, int HW, int C, int gs, int cb, int rows_per_cta, float eps,
+                          int relu) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int nblk = C / cb, chunk = blockIdx.x / nblk;
+  const int c0 = (blockIdx.x % nblk) * cb;
+  const int b = blockIdx.y;
+  const int G = C / gs, ng = cb / gs, g0 = c0 / gs;
+  const int vpr = cb / V, rslots = blockDim.x / vpr;
+  const int cv = tid % vpr, slot = tid / vpr;
+  const size_t base = (size_t)b * HW * C + c0 + cv * V;
+  const int row1 = min(chunk * rows_per_cta + rows_per_cta, HW);
+  const int step = kApplyBatch * rslots;
+  int r0 = chunk * rows_per_cta + slot;
+  uint4 raw[kApplyBatch];
+  load_batch(raw, x + base, r0, row1, rslots, C);  // in flight through the prologue
+  float mu[V], a[V], be[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    a[k] = gamma[c0 + cv * V + k];
+    be[k] = beta[c0 + cv * V + k];
+  }
+  extern __shared__ float sh[];  // mu [ng] | rstd [ng]
+  for (int g = tid; g < ng; g += blockDim.x) {
+    float n = 0.f, mean = 0.f, m2 = 0.f;
+    for (int s = 0; s < S; ++s) {
+      const float* p = gathered + (((size_t)s * B + b) * G + g0 + g) * 3;
+      chan_merge(n, mean, m2, p[0], p[1], p[2]);
+    }
+    const float rstd = rsqrtf(fmaxf(m2 / n, 0.f) + eps);
+    sh[g] = mean;
+    sh[ng + g] = rstd;
+    if (chunk == 0) {
+      stats[((size_t)b * G + g0 + g) * 2] = mean;
+      stats[((size_t)b * G + g0 + g) * 2 + 1] = rstd;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int g = (cv * V + k) / gs;
+    mu[k] = sh[g];
+    a[k] *= sh[ng + g];  // gamma * rstd, the forward's product
+  }
+  for (; r0 < row1; r0 += step) {
+#pragma unroll
+    for (int u = 0; u < kApplyBatch; ++u) {
+      if (r0 + u * rslots >= row1) break;
+      float v[V];
+      unpack(x, raw[u], v);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float o = fmaf(v[k] - mu[k], a[k], be[k]);
+        v[k] = relu ? fmaxf(o, 0.f) : o;
+      }
+      store_vec(y + base + (size_t)(r0 + u * rslots) * C, v);
+    }
+    load_batch(raw, x + base, r0 + step, row1, rslots, C);
+  }
+}
+
+// The forward's per-channel constants of K1-bwd at channel c of image b:
+// a = gamma * r is its product, so pre = fmaf(x - mu, a, beta) and the ReLU
+// mask have its bits.
+__device__ __forceinline__ void backward_constants(const float* __restrict__ gamma,
+                                                   const float* __restrict__ beta,
+                                                   const float* __restrict__ stats, int b, int G,
+                                                   int gs, int c, float& mu, float& r, float& a,
+                                                   float& be) {
+  const float* st = stats + ((size_t)b * G + c / gs) * 2;
+  mu = st[0];
+  r = st[1];
+  a = gamma[c] * r;
+  be = beta[c];
+}
+
+// The layout of gn_shard_stats_cluster_kernel; rank 0 writes sums[b, 0, c] =
+// sum gh and sums[b, 1, c] = sum gh * xhat over the shard's rows.
+template <typename T>
+__global__ void __launch_bounds__(kShardMaxThreads)
+    gnb_shard_sums_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                  const float* __restrict__ gamma, const float* __restrict__ beta,
+                                  const float* __restrict__ stats, float* __restrict__ sums,
+                                  int HW, int C, int gs, int cb, int rows_per_cta, int relu) {
+  constexpr int V = Vec<T>::N;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int tid = threadIdx.x;
+  const int rank = blockIdx.x, cs = gridDim.x;
+  const int c0 = blockIdx.y * cb;
+  const int b = blockIdx.z;
+  const int row1 = min(rank * rows_per_cta + rows_per_cta, HW);
+  const int vpr = cb / V, rslots = blockDim.x / vpr;
+  const int cv = tid % vpr, slot = tid / vpr;
+
+  extern __shared__ float sh[];
+  float* red = sh;
+  float* part = red + 2 * red_slots(vpr) * cb;
+  float* xch = part + 2 * cb;
+
+  float mu[V], r[V], a[V], be[V], acc[2][V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    backward_constants(gamma, beta, stats, b, C / gs, gs, c0 + cv * V + k, mu[k], r[k], a[k],
+                       be[k]);
+    acc[0][k] = acc[1][k] = 0.f;
+  }
+  const size_t base = (size_t)b * HW * C + c0 + cv * V;
+  for (int r0 = rank * rows_per_cta + slot; r0 < row1; r0 += kSumsBatch * rslots) {
+    uint4 rx[kSumsBatch], rd[kSumsBatch];
+    load_batch2(rx, rd, x + base, dy + base, r0, row1, rslots, C);
+#pragma unroll
+    for (int u = 0; u < kSumsBatch; ++u) {
+      if (r0 + u * rslots >= row1) break;
+      float v[V], g[V];
+      unpack(x, rx[u], v);
+      unpack(x, rd[u], g);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = v[k] - mu[k];
+        const float gh = (relu && !(fmaf(d, a[k], be[k]) > 0.f)) ? 0.f : g[k];
+        acc[0][k] += gh;
+        acc[1][k] = fmaf(gh, d * r[k], acc[1][k]);
+      }
+    }
+  }
+  if (!sums_to_rank0<V, 2>(acc, red, part, xch, vpr, cb)) return;
+  for (int i = tid; i < 2 * cb; i += blockDim.x) {
+    float s = 0.f;
+    for (int k = 0; k < cs; ++k) s += xch[k * 2 * cb + i];
+    sums[(size_t)b * 2 * C + (i / cb) * C + c0 + i % cb] = s;
+  }
+}
+
+// The layout of gn_shard_apply_kernel: the ranks' sums of the block's
+// channels added in rank order, the group coefficients r * c1 and r^2 * c2
+// (count: count_hw * gs), dx over the range's rows. The CTAs of row range 0
+// of image 0 write dscale and dbias of their channels: rank `index`'s sums
+// over the images, in order.
+template <typename T>
+__global__ void __launch_bounds__(kShardApplyMaxThreads)
+    gnb_shard_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
+                           const float* __restrict__ gamma, const float* __restrict__ beta,
+                           const float* __restrict__ stats, const float* __restrict__ gathered,
+                           float* __restrict__ dgamma, float* __restrict__ dbeta, int index,
+                           int S, int B, int HW, int count_hw, int C, int gs, int cb,
+                           int rows_per_cta, int relu) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int nblk = C / cb, chunk = blockIdx.x / nblk;
+  const int c0 = (blockIdx.x % nblk) * cb;
+  const int b = blockIdx.y;
+  const int G = C / gs, ng = cb / gs, g0 = c0 / gs;
+  const size_t per_rank = (size_t)B * 2 * C;  // gathered is [S, B, 2, C]
+  const int vpr = cb / V, rslots = blockDim.x / vpr;
+  const int cv = tid % vpr, slot = tid / vpr;
+  const size_t base = (size_t)b * HW * C + c0 + cv * V;
+  const int row1 = min(chunk * rows_per_cta + rows_per_cta, HW);
+  const int step = kBwdApplyBatch * rslots;
+  int r0 = chunk * rows_per_cta + slot;
+  uint4 rx[kBwdApplyBatch], rd[kBwdApplyBatch];
+  load_batch2(rx, rd, x + base, dy + base, r0, row1, rslots, C);  // through the prologue
+  float mu[V], r[V], a[V], be[V], rc1[V], r2c2[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k)
+    backward_constants(gamma, beta, stats, b, G, gs, c0 + cv * V + k, mu[k], r[k], a[k], be[k]);
+  extern __shared__ float sh[];
+  float* csum = sh;            // 2 * cb: the image's sums of the block's channels
+  float* coef = sh + 2 * cb;   // 2 * ng: r * c1 and r^2 * c2 per group
+  for (int i = tid; i < 2 * cb; i += blockDim.x) {
+    const float* p = gathered + ((size_t)b * 2 + i / cb) * C + c0 + i % cb;
+    float t = 0.f;
+    for (int s = 0; s < S; ++s) t += p[s * per_rank];
+    csum[i] = t;
+  }
+  if (b == 0 && chunk == 0) {
+    const float* own = gathered + index * per_rank + c0;
+    for (int c = tid; c < cb; c += blockDim.x) {
+      float db = 0.f, dg = 0.f;
+      for (int i = 0; i < B; ++i) {
+        db += own[(size_t)i * 2 * C + c];
+        dg += own[(size_t)i * 2 * C + C + c];
+      }
+      dbeta[c0 + c] = db;
+      dgamma[c0 + c] = dg;
+    }
+  }
+  __syncthreads();
+  for (int g = tid; g < ng; g += blockDim.x) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int c = g * gs; c < (g + 1) * gs; ++c) {
+      t1 = fmaf(gamma[c0 + c], csum[c], t1);
+      t2 = fmaf(gamma[c0 + c], csum[cb + c], t2);
+    }
+    const float n = static_cast<float>(count_hw) * static_cast<float>(gs);
+    const float rg = stats[((size_t)b * G + g0 + g) * 2 + 1];
+    coef[g] = rg * (t1 / n);
+    coef[ng + g] = rg * rg * (t2 / n);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int g = (cv * V + k) / gs;
+    rc1[k] = coef[g];
+    r2c2[k] = coef[ng + g];
+  }
+  for (; r0 < row1; r0 += step) {
+#pragma unroll
+    for (int u = 0; u < kBwdApplyBatch; ++u) {
+      if (r0 + u * rslots >= row1) break;
+      float v[V], g[V];
+      unpack(x, rx[u], v);
+      unpack(x, rd[u], g);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float d = v[k] - mu[k];
+        const float gh = (relu && !(fmaf(d, a[k], be[k]) > 0.f)) ? 0.f : g[k];
+        v[k] = fmaf(a[k], gh, -fmaf(d, r2c2[k], rc1[k]));
+      }
+      store_vec(dx + base + (size_t)(r0 + u * rslots) * C, v);
+    }
+    load_batch2(rx, rd, x + base, dy + base, r0 + step, row1, rslots, C);
+  }
+}
+
+// The plan's geometry as the kernels need it: whole groups in a channel
+// block of whole vectors, one thread per vector of a row and whole rows of
+// threads, the reductions' cluster within the card's limit and their layout
+// within the planned shared memory (cs = 0 for the applies). A reduction
+// whose rows divide a warp takes whole warps: stage_slots shuffles over all
+// 32 lanes and keeps one row slot a warp.
+bool shard_plan_ok(int V, int C, int gs, int cb, int cs, int rows_per_cta, int threads,
+                   int smem) {
+  if (cb <= 0 || C % cb != 0 || cb % gs != 0 || cb % V != 0 || rows_per_cta < 1) return false;
+  const int vpr = cb / V;
+  if (threads > (cs == 0 ? kShardApplyMaxThreads : kShardMaxThreads) || threads < vpr ||
+      threads % vpr != 0)
+    return false;
+  if (cs != 0 && 32 % vpr == 0 && threads % 32 != 0) return false;
+  return cs == 0 || (cs <= kMaxClusterBackward && smem <= kMaxDynSmem &&
+                     shard_smem_bytes(V, cb, threads, cs) <= (size_t)smem);
 }
 
 template <typename T>
-cudaError_t launch_shard_stats(const void* x, float* part, float* out, int B, int HW, int C,
-                               int G, int chunk_rows, int nchunks, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const int tpr = C / V;
-  const int rpi = tpr >= 256 ? 1 : 256 / tpr;
-  const int threads = tpr * rpi;
-  const size_t shmem = rpi > 1 ? (size_t)threads * (2 * V + 1) * sizeof(float) : 0;
-  gn_stats_kernel<T><<<dim3(nchunks, B), threads, shmem, stream>>>(
-      static_cast<const T*>(x), part, HW, C, chunk_rows, nchunks);
-  const cudaError_t err = cudaGetLastError();
+int launch_shard_stats(const void* x, float* out, int B, int HW, int C, int G, int cb, int cs,
+                       int rows_per_cta, int threads, int smem, cudaStream_t stream) {
+  if (!shard_plan_ok(Vec<T>::N, C, C / G, cb, cs, rows_per_cta, threads, smem))
+    return kErrSmemPlan;
+  const ClusterLaunch launch(dim3(cs, C / cb, B), cs, threads, smem, stream);
+  int e = ready_cluster(reinterpret_cast<const void*>(gn_shard_stats_cluster_kernel<T>), launch,
+                        cs);
+  if (e != 0) return e;
+  const cudaError_t err = cudaLaunchKernelEx(&launch.cfg, gn_shard_stats_cluster_kernel<T>,
+                                             static_cast<const T*>(x), out, HW, C, C / G, cb,
+                                             rows_per_cta);
   if (err != cudaSuccess) return err;
-  gn_shard_stats_kernel<<<dim3(G, B), kFinalizeThreads, 0, stream>>>(part, out, HW, C, G,
-                                                                     chunk_rows, nchunks);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_shard_apply(const void* x, void* y, const float* gamma, const float* beta,
-                               const float* gathered, float* affine, float* stats, int S, int B,
-                               int HW, int C, int G, float eps, int relu, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  gn_shard_merge_kernel<<<dim3(G, B), 32, 0, stream>>>(gathered, gamma, beta, affine, stats, S,
-                                                       B, C, G, eps);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int HWC = HW * C;
-  int blocks = (HWC / V + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  gn_apply_kernel<T><<<dim3(blocks, B), 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(y), affine, HWC, C, relu);
+int launch_shard_apply(const void* x, void* y, const float* gamma, const float* beta,
+                       const float* gathered, float* stats, int S, int B, int HW, int C, int G,
+                       int cb, int rows_per_cta, int threads, float eps, int relu,
+                       cudaStream_t stream) {
+  if (!shard_plan_ok(Vec<T>::N, C, C / G, cb, 0, rows_per_cta, threads, 0))
+    return kErrSmemPlan;
+  const int chunks = (HW + rows_per_cta - 1) / rows_per_cta;
+  const size_t smem = 2 * (size_t)(cb / (C / G)) * sizeof(float);
+  gn_shard_apply_kernel<T><<<dim3(chunks * (C / cb), B), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(y), gamma, beta, gathered, stats, S, B, HW, C,
+      C / G, cb, rows_per_cta, eps, relu);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_shard_backward_sums(const void* x, const void* dy, const float* gamma,
-                                       const float* beta, const float* stats, float* part,
-                                       float* sums, int B, int HW, int C, int G, int chunk_rows,
-                                       int nchunks, int relu, cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const int tpr = C / V;
-  const int rpi = tpr >= 256 ? 1 : 256 / tpr;
-  const int threads = tpr * rpi;
-  const size_t shmem = rpi > 1 ? (size_t)threads * 2 * V * sizeof(float) : 0;
-  gnb_partials_kernel<T><<<dim3(nchunks, B), threads, shmem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), gamma, beta, stats, part, HW, C, G,
-      chunk_rows, nchunks, relu);
-  const cudaError_t err = cudaGetLastError();
+int launch_shard_backward_sums(const void* x, const void* dy, const float* gamma,
+                               const float* beta, const float* stats, float* sums, int B, int HW,
+                               int C, int G, int cb, int cs, int rows_per_cta, int threads,
+                               int smem, int relu, cudaStream_t stream) {
+  if (!shard_plan_ok(Vec<T>::N, C, C / G, cb, cs, rows_per_cta, threads, smem))
+    return kErrSmemPlan;
+  const ClusterLaunch launch(dim3(cs, C / cb, B), cs, threads, smem, stream);
+  int e = ready_cluster(reinterpret_cast<const void*>(gnb_shard_sums_cluster_kernel<T>), launch,
+                        cs);
+  if (e != 0) return e;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &launch.cfg, gnb_shard_sums_cluster_kernel<T>, static_cast<const T*>(x),
+      static_cast<const T*>(dy), gamma, beta, stats, sums, HW, C, C / G, cb, rows_per_cta, relu);
   if (err != cudaSuccess) return err;
-  gnb_image_sums_kernel<<<dim3((C + 31) / 32, B), dim3(32, kSumLanes), 0, stream>>>(
-      part, sums, C, nchunks);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_shard_backward_apply(const void* x, const void* dy, const float* gamma,
-                                        const float* beta, const float* stats,
-                                        const float* gathered, float* sums, float* table,
-                                        void* dx, float* dgamma, float* dbeta, int index, int S,
-                                        int B, int HW, int count_hw, int C, int G, int relu,
-                                        cudaStream_t stream) {
-  constexpr int V = Vec<T>::N;
-  const int n = B * 2 * C;
-  gnb_shard_sums_kernel<<<(n + 255) / 256, 256, 0, stream>>>(gathered, sums, S, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gnb_batch_sums_kernel<<<(C + 255) / 256, 256, 0, stream>>>(gathered + (size_t)index * n,
-                                                             dgamma, dbeta, B, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gnb_finalize_kernel<<<dim3(G, B), 32, 0, stream>>>(sums, gamma, beta, stats, table, dgamma,
-                                                     dbeta, B, count_hw, C, G);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int HWC = HW * C;
-  int blocks = (HWC / V + 255) / 256;
-  if (blocks > 4096) blocks = 4096;
-  gnb_apply_kernel<T><<<dim3(blocks, B), 256, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), table, HWC, C,
+int launch_shard_backward_apply(const void* x, const void* dy, const float* gamma,
+                                const float* beta, const float* stats, const float* gathered,
+                                void* dx, float* dgamma, float* dbeta, int index, int S, int B,
+                                int HW, int count_hw, int C, int G, int cb, int rows_per_cta,
+                                int threads, int relu, cudaStream_t stream) {
+  if (!shard_plan_ok(Vec<T>::N, C, C / G, cb, 0, rows_per_cta, threads, 0))
+    return kErrSmemPlan;
+  const int chunks = (HW + rows_per_cta - 1) / rows_per_cta;
+  const size_t smem = 2 * (size_t)(cb + cb / (C / G)) * sizeof(float);
+  gnb_shard_apply_kernel<T><<<dim3(chunks * (C / cb), B), threads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<T*>(dx), gamma, beta,
+      stats, gathered, dgamma, dbeta, index, S, B, HW, count_hw, C, C / G, cb, rows_per_cta,
       relu);
   return cudaGetLastError();
 }
@@ -1496,57 +1853,57 @@ extern "C" int crossloc_gn_cluster_backward(const void* x, const void* dy, const
                                                   box_rows, nbox, threads, smem, relu, s);
 }
 
-extern "C" int crossloc_gn_shard_stats(const void* x, float* part, float* out, int B, int HW,
-                                       int C, int G, int chunk_rows, int nchunks, int is_bf16,
-                                       void* stream) {
+extern "C" int crossloc_gn_shard_stats(const void* x, float* out, int B, int HW, int C, int G,
+                                       int cb, int cluster, int rows_per_cta, int threads,
+                                       int smem, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? launch_shard_stats<__nv_bfloat16>(x, part, out, B, HW, C, G, chunk_rows, nchunks,
-                                                  s)
-              : launch_shard_stats<float>(x, part, out, B, HW, C, G, chunk_rows, nchunks, s));
+  return is_bf16 ? launch_shard_stats<__nv_bfloat16>(x, out, B, HW, C, G, cb, cluster,
+                                                     rows_per_cta, threads, smem, s)
+                 : launch_shard_stats<float>(x, out, B, HW, C, G, cb, cluster, rows_per_cta,
+                                             threads, smem, s);
 }
 
 extern "C" int crossloc_gn_shard_apply(const void* x, void* y, const float* gamma,
-                                       const float* beta, const float* gathered, float* affine,
-                                       float* stats, int S, int B, int HW, int C, int G,
-                                       float eps, int relu, int is_bf16, void* stream) {
+                                       const float* beta, const float* gathered, float* stats,
+                                       int S, int B, int HW, int C, int G, int cb,
+                                       int rows_per_cta, int threads, float eps, int relu,
+                                       int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? launch_shard_apply<__nv_bfloat16>(x, y, gamma, beta, gathered, affine, stats, S,
-                                                  B, HW, C, G, eps, relu, s)
-              : launch_shard_apply<float>(x, y, gamma, beta, gathered, affine, stats, S, B, HW,
-                                          C, G, eps, relu, s));
+  return is_bf16 ? launch_shard_apply<__nv_bfloat16>(x, y, gamma, beta, gathered, stats, S, B,
+                                                     HW, C, G, cb, rows_per_cta, threads, eps,
+                                                     relu, s)
+                 : launch_shard_apply<float>(x, y, gamma, beta, gathered, stats, S, B, HW, C, G,
+                                             cb, rows_per_cta, threads, eps, relu, s);
 }
 
 extern "C" int crossloc_gn_shard_backward_sums(const void* x, const void* dy, const float* gamma,
                                                const float* beta, const float* stats,
-                                               float* part, float* sums, int B, int HW, int C,
-                                               int G, int chunk_rows, int nchunks, int relu,
-                                               int is_bf16, void* stream) {
+                                               float* sums, int B, int HW, int C, int G, int cb,
+                                               int cluster, int rows_per_cta, int threads,
+                                               int smem, int relu, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? launch_shard_backward_sums<__nv_bfloat16>(x, dy, gamma, beta, stats, part, sums,
-                                                          B, HW, C, G, chunk_rows, nchunks,
-                                                          relu, s)
-              : launch_shard_backward_sums<float>(x, dy, gamma, beta, stats, part, sums, B, HW,
-                                                  C, G, chunk_rows, nchunks, relu, s));
+  return is_bf16 ? launch_shard_backward_sums<__nv_bfloat16>(x, dy, gamma, beta, stats, sums, B,
+                                                             HW, C, G, cb, cluster, rows_per_cta,
+                                                             threads, smem, relu, s)
+                 : launch_shard_backward_sums<float>(x, dy, gamma, beta, stats, sums, B, HW, C,
+                                                     G, cb, cluster, rows_per_cta, threads,
+                                                     smem, relu, s);
 }
 
 extern "C" int crossloc_gn_shard_backward_apply(const void* x, const void* dy,
                                                 const float* gamma, const float* beta,
                                                 const float* stats, const float* gathered,
-                                                float* sums, float* table, void* dx,
-                                                float* dgamma, float* dbeta, int index, int S,
-                                                int B, int HW, int count_hw, int C, int G,
-                                                int relu, int is_bf16, void* stream) {
+                                                void* dx, float* dgamma, float* dbeta, int index,
+                                                int S, int B, int HW, int count_hw, int C, int G,
+                                                int cb, int rows_per_cta, int threads, int relu,
+                                                int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      is_bf16 ? launch_shard_backward_apply<__nv_bfloat16>(x, dy, gamma, beta, stats, gathered,
-                                                           sums, table, dx, dgamma, dbeta, index,
-                                                           S, B, HW, count_hw, C, G, relu, s)
-              : launch_shard_backward_apply<float>(x, dy, gamma, beta, stats, gathered, sums,
-                                                   table, dx, dgamma, dbeta, index, S, B, HW,
-                                                   count_hw, C, G, relu, s));
+  return is_bf16 ? launch_shard_backward_apply<__nv_bfloat16>(
+                       x, dy, gamma, beta, stats, gathered, dx, dgamma, dbeta, index, S, B, HW,
+                       count_hw, C, G, cb, rows_per_cta, threads, relu, s)
+                 : launch_shard_backward_apply<float>(x, dy, gamma, beta, stats, gathered, dx,
+                                                      dgamma, dbeta, index, S, B, HW, count_hw,
+                                                      C, G, cb, rows_per_cta, threads, relu, s);
 }
 
 extern "C" const char* crossloc_cuda_error_string(int err) {
@@ -1556,7 +1913,9 @@ extern "C" const char* crossloc_cuda_error_string(int err) {
     case kErrEncode:
       return "cuTensorMapEncodeTiled refused the tensor map";
     case kErrSmemPlan:
-      return "the cluster kernel's shared-memory layout exceeds the planned bytes or 227 KB";
+      return "the kernel's geometry or shared-memory layout does not match its plan (more "
+             "bytes than planned or 227 KB, or a channel block, row range or thread count it "
+             "does not take)";
     case kErrNoCluster:
       return "no cluster of this size and shared memory fits the card "
              "(cudaOccupancyMaxActiveClusters = 0)";

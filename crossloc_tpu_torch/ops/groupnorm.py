@@ -25,10 +25,11 @@ pre-activation == 0 the ReLU passes no gradient (torch's rule; JAX's
 
 The cross-shard form, for the mesh's "spatial" axis: an image's rows are
 split over the ranks of a spatial group, so the statistics span ranks. Four
-entries, each a kernel launch sequence on CUDA tensors and a plain twin on
-CPU tensors; `parallel/spatial.py::group_norm_relu_spatial` all-gathers
-over the group between the two of each direction: `group_norm_shard_stats`
-(per (image, group) count, mean and M2 of the shard), `group_norm_shard_apply` (the
+entries, each one kernel launch on CUDA tensors (its geometry from
+`_shard_plan`) and a plain twin on CPU tensors;
+`parallel/spatial.py::group_norm_relu_spatial` all-gathers over the group
+between the two of each direction: `group_norm_shard_stats` (per (image,
+group) count, mean and M2 of the shard), `group_norm_shard_apply` (the
 ranks' statistics merged in rank order, then the norm),
 `group_norm_shard_backward_sums` (per (image, channel) sums of the shard)
 and `group_norm_shard_backward_apply` (the ranks' sums added in rank order,
@@ -47,6 +48,7 @@ import torch
 GN_EPS = 1e-5  # torch nn.GroupNorm default, the nets' normaliser
 _TARGET_STATS_BLOCKS = 1056  # 8 blocks per SM on a 132-SM H100
 _VEC_BYTES = 16  # one vector load; also TMA's unit for strides and inner boxes
+_WARP = 32
 # the narrowest row of a channel block: two 32-byte sectors, the unit HBM
 # moves. Measured on an H100 against 32 B (one sector): as fast or faster at
 # every shape of the main path (PERF.md)
@@ -63,6 +65,18 @@ _SLAB_PER_CTA = 200 * 1024  # slab bytes one CTA may hold (leaves room for the r
 # (1 KB of it reserved per CTA), so one CTA's loads overlap another's
 # statistics; else one CTA per SM
 _CTA_SMEM_LIMITS = (228 * 1024 // 2 - 1024, _SMEM_PER_CTA)
+# the cross-shard kernels (`_shard_plan`): the reductions' cluster sizes,
+# the least grid they aim for in CTAs (an H100 has 132 SMs), and the threads
+# they aim for across the grid, times the tensors each thread reads (1 for
+# the statistics, 2 for the backward's sums: about 1,000 a SM); the
+# applies' threads and grid
+_SHARD_CLUSTER_SIZES = (1, 2, 4, 8, 16)
+_SHARD_GRID = 132
+_SHARD_LOADS = 1 << 17
+_SHARD_THREADS = (256, 512)  # the least and the most threads of a reduction CTA
+_SHARD_APPLY_THREADS = 256
+_SHARD_APPLY_GRID = 2 * 132
+_SHARD_MAX_VECTORS = 256  # vectors of 16 bytes in a CTA's row slice
 _LIB = None
 
 
@@ -120,7 +134,7 @@ def _channel_block(C: int, G: int, itemsize: int) -> int:
 def _red_slots(cb: int, itemsize: int, threads: int) -> int:
     """Row slots of the reduction scratch left after a warp's shuffles."""
     vpr = cb * itemsize // _VEC_BYTES
-    return threads // 32 if 32 % vpr == 0 else threads // vpr
+    return threads // _WARP if _WARP % vpr == 0 else threads // vpr
 
 
 def _cluster_smem(itemsize: int, cb: int, gs: int, box_rows: int, nbox: int, threads: int,
@@ -199,6 +213,88 @@ def _plan_backward(B: int, H: int, W: int, C: int, G: int, dtype) -> Plan:
     return plan or _FOUR_KERNEL
 
 
+class ShardPlan(NamedTuple):
+    """How the four cross-shard entries cut one shard (see `_shard_plan`)."""
+    cb: int             # channels per reduction CTA: whole groups
+    cluster: int        # CTAs per cluster of the two reductions, one per (image, channel block)
+    rows_per_cta: int   # rows each reduction CTA sums (the last CTA may sum fewer)
+    threads: int        # threads per reduction CTA
+    smem_bytes: int     # dynamic shared memory of a reduction CTA
+    apply_cb: int       # channels per CTA of the two applies: whole groups, whole rows if they fit
+    apply_rows: int     # rows each apply CTA takes (the last may take fewer)
+    apply_threads: int  # threads per apply CTA
+
+
+def _shard_smem(itemsize: int, cb: int, threads: int, cluster: int) -> int:
+    """Dynamic shared memory of one reduction CTA: the reduction scratch, its
+    own two sums per channel, every rank's (pushed into rank 0) and the
+    channels' pivots (the kernels' layout)."""
+    return 4 * (2 * _red_slots(cb, itemsize, threads) * cb + 3 * cb + 2 * cluster * cb)
+
+
+def _group_blocks(C: int, G: int, itemsize: int):
+    """Channel blocks of whole groups in whole 16-byte vectors that a CTA's
+    row spans (at most _SHARD_MAX_VECTORS), narrowest first."""
+    gs = C // G
+    return [k * gs for k in range(1, G + 1)
+            if G % k == 0 and k * gs * itemsize % _VEC_BYTES == 0
+            and k * gs * itemsize // _VEC_BYTES <= _SHARD_MAX_VECTORS]
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_plan(B: int, HW: int, C: int, G: int, dtype, tensors: int = 1):
+    """The geometry of the cross-shard kernels for a shard of B images of HW
+    rows and C channels in G groups, the reduction reading `tensors` tensors
+    (1: the statistics, 2: the backward's sums): pure arithmetic on the
+    shape, None where no plan fits (a group wider than 256 vectors of 16
+    bytes, or no rows).
+
+    The reduction runs one cluster per (image, channel block). The channel
+    block is the widest of whole groups (at least 64 bytes a pixel) for
+    which clusters of 16 reach _SHARD_GRID CTAs, else the narrowest; the
+    cluster is the smallest that reaches it, or whose CTAs hold no more rows
+    than they have row slots (the shared memory within 227 KB). Each CTA
+    takes _SHARD_LOADS / tensors / CTAs threads, within _SHARD_THREADS:
+    about as many loads in flight on the card for x alone as for x and dy;
+    a multiple of 32 where a row's vectors divide a warp.
+    The applies: whole rows where they fit a CTA's threads, else the widest
+    block of whole groups that does; row ranges enough for
+    _SHARD_APPLY_GRID CTAs, at least one row a row slot."""
+    item = dtype.itemsize
+    blocks = _group_blocks(C, G, item)
+    if HW < 1 or not blocks:
+        return None
+    wide = [k for k in blocks if k * item >= _MIN_ROW_BYTES] or blocks[-1:]
+    fits = [k for k in wide if B * (C // k) * _SHARD_CLUSTER_SIZES[-1] >= _SHARD_GRID]
+    cb = fits[-1] if fits else wide[0]
+    vpr = cb * item // _VEC_BYTES
+    # whole rows of threads; whole warps too where a warp holds whole rows,
+    # whose shuffles (the kernels' stage_slots) span all 32 lanes
+    step = _WARP if _WARP % vpr == 0 else vpr
+    pairs = B * (C // cb)
+    plan = None
+    for cs in _SHARD_CLUSTER_SIZES:
+        rows = -(-HW // cs)
+        cluster = -(-HW // rows)  # every CTA holds rows
+        want = min(max(_SHARD_LOADS // tensors // (pairs * cluster), _SHARD_THREADS[0]),
+                   _SHARD_THREADS[1])
+        threads = step * max(1, want // step)
+        smem = _shard_smem(item, cb, threads, cluster)
+        if smem > _SMEM_PER_CTA:
+            break
+        plan = (cluster, rows, threads, smem)
+        if pairs * cluster >= _SHARD_GRID or rows <= threads // vpr:
+            break
+    if plan is None:
+        return None
+    apply_cb = blocks[-1]
+    avpr = apply_cb * item // _VEC_BYTES
+    apply_threads = avpr * (_SHARD_APPLY_THREADS // avpr)
+    apairs = B * (C // apply_cb)
+    chunks = max(1, min(HW // (apply_threads // avpr), -(-_SHARD_APPLY_GRID // apairs)))
+    return ShardPlan(cb, *plan, apply_cb, -(-HW // chunks), apply_threads)
+
+
 def _chunking(B: int, HW: int):
     nchunks = max(1, min(HW, -(-_TARGET_STATS_BLOCKS // B)))
     chunk_rows = -(-HW // nchunks)
@@ -221,13 +317,13 @@ def _lib():
         lib.crossloc_gn_backward.restype = i
         lib.crossloc_gn_cluster_backward.argtypes = [p] * 9 + [i] * 13 + [p]
         lib.crossloc_gn_cluster_backward.restype = i
-        lib.crossloc_gn_shard_stats.argtypes = [p] * 3 + [i] * 7 + [p]
+        lib.crossloc_gn_shard_stats.argtypes = [p] * 2 + [i] * 10 + [p]
         lib.crossloc_gn_shard_stats.restype = i
-        lib.crossloc_gn_shard_apply.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float, i, i, p]
+        lib.crossloc_gn_shard_apply.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float, i, i, p]
         lib.crossloc_gn_shard_apply.restype = i
-        lib.crossloc_gn_shard_backward_sums.argtypes = [p] * 7 + [i] * 8 + [p]
+        lib.crossloc_gn_shard_backward_sums.argtypes = [p] * 6 + [i] * 11 + [p]
         lib.crossloc_gn_shard_backward_sums.restype = i
-        lib.crossloc_gn_shard_backward_apply.argtypes = [p] * 11 + [i] * 9 + [p]
+        lib.crossloc_gn_shard_backward_apply.argtypes = [p] * 9 + [i] * 12 + [p]
         lib.crossloc_gn_shard_backward_apply.restype = i
         lib.crossloc_cuda_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -580,23 +676,34 @@ def _stream(x) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _shard_plan_for(x, groups: int, tensors: int) -> ShardPlan:
+    """`_shard_plan` of a CUDA shard, or a ValueError where none fits."""
+    B, H, W, C = x.shape
+    plan = _shard_plan(B, H * W, C, groups, x.dtype, tensors)
+    if plan is None:
+        raise ValueError(f"no cross-shard plan fits {tuple(x.shape)} {x.dtype} in {groups} "
+                         f"groups (a group wider than {_SHARD_MAX_VECTORS} vectors of "
+                         f"{_VEC_BYTES} bytes, or no rows)")
+    return plan
+
+
 def group_norm_shard_stats(x, groups: int):
     """K1-shard-stats: float32 [B, groups, 3] (count, mean, M2) of this
-    shard's rows; the kernel on a CUDA tensor (one launch counted), the twin
-    on a CPU tensor."""
+    shard's rows; one cluster kernel on a CUDA tensor (one launch counted),
+    the twin on a CPU tensor."""
     _check_shard(x, groups)
     if _is_cpu(x):
         return group_norm_shard_stats_plain(x, groups)
     _check_cuda_x(x)
+    plan = _shard_plan_for(x, groups, 1)
     lib = _lib()
     B, H, W, C = x.shape
-    chunk_rows, nchunks = _chunking(B, H * W)
-    part = torch.empty(B * nchunks * 2 * C, device=x.device, dtype=torch.float32)
     out = torch.empty(B, groups, 3, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        err = lib.crossloc_gn_shard_stats(x.data_ptr(), part.data_ptr(), out.data_ptr(), B,
-                                          H * W, C, groups, chunk_rows, nchunks,
-                                          int(x.dtype == torch.bfloat16), _stream(x))
+        err = lib.crossloc_gn_shard_stats(
+            x.data_ptr(), out.data_ptr(), B, H * W, C, groups, plan.cb, plan.cluster,
+            plan.rows_per_cta, plan.threads, plan.smem_bytes, int(x.dtype == torch.bfloat16),
+            _stream(x))
     _raise_on(err, lib, "shard stats")
     group_norm_shard_stats.launches += 1
     return out
@@ -606,23 +713,24 @@ def group_norm_shard_apply(x, scale, bias, gathered, groups: int, eps: float = G
                            relu: bool = True):
     """K1-shard-apply: (y, stats [B, groups, 2] of (mu, rstd)) of this
     shard's rows from every rank's statistics `gathered` [S, B, groups, 3];
-    the kernel on a CUDA tensor (one launch counted), the twin on a CPU
+    one kernel on a CUDA tensor (one launch counted), the twin on a CPU
     tensor."""
     _check(x, scale, bias, groups)
     _check_gathered(gathered, x, (x.shape[0], groups, 3))
     if _is_cpu(x):
         return group_norm_shard_apply_plain(x, scale, bias, gathered, groups, eps, relu)
     _check_cuda(x, scale, bias)
+    plan = _shard_plan_for(x, groups, 1)
     lib = _lib()
     B, H, W, C = x.shape
     y = torch.empty_like(x)
-    affine = torch.empty(B * 3 * C, device=x.device, dtype=torch.float32)
     stats = torch.empty(B, groups, 2, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = lib.crossloc_gn_shard_apply(
             x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), gathered.data_ptr(),
-            affine.data_ptr(), stats.data_ptr(), gathered.shape[0], B, H * W, C, groups,
-            float(eps), int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+            stats.data_ptr(), gathered.shape[0], B, H * W, C, groups, plan.apply_cb,
+            plan.apply_rows, plan.apply_threads, float(eps), int(relu),
+            int(x.dtype == torch.bfloat16), _stream(x))
     _raise_on(err, lib, "shard apply")
     group_norm_shard_apply.launches += 1
     return y, stats
@@ -630,22 +738,21 @@ def group_norm_shard_apply(x, scale, bias, gathered, groups: int, eps: float = G
 
 def group_norm_shard_backward_sums(x, scale, bias, stats, dy, groups: int, relu: bool = True):
     """K1-bwd-shard-sums: float32 [B, 2, C] sums of gh and gh * xhat over
-    this shard's rows; the kernels on CUDA tensors (one launch counted), the
-    twin on CPU tensors."""
+    this shard's rows; one cluster kernel on CUDA tensors (one launch
+    counted), the twin on CPU tensors."""
     if _is_cpu(x):
         _check(x, scale, bias, groups)
         return group_norm_shard_backward_sums_plain(x, scale, bias, stats, dy, groups, relu)
     _check_backward(x, scale, bias, stats, dy, groups)
+    plan = _shard_plan_for(x, groups, 2)
     lib = _lib()
     B, H, W, C = x.shape
-    chunk_rows, nchunks = _chunking(B, H * W)
-    part = torch.empty(B * nchunks * 2 * C, device=x.device, dtype=torch.float32)
     sums = torch.empty(B, 2, C, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = lib.crossloc_gn_shard_backward_sums(
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
-            part.data_ptr(), sums.data_ptr(), B, H * W, C, groups, chunk_rows, nchunks,
-            int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+            sums.data_ptr(), B, H * W, C, groups, plan.cb, plan.cluster, plan.rows_per_cta,
+            plan.threads, plan.smem_bytes, int(relu), int(x.dtype == torch.bfloat16), _stream(x))
     _raise_on(err, lib, "shard backward sums")
     group_norm_shard_backward_sums.launches += 1
     return sums
@@ -656,7 +763,7 @@ def group_norm_shard_backward_apply(x, scale, bias, stats, dy, gathered, index: 
     """K1-bwd-shard-apply: (dx, dscale, dbias) of this shard from every
     rank's sums `gathered` [S, B, 2, C], the whole image's `count_hw` = H*W
     and this rank's `index` in the group (its dscale and dbias are the
-    shard's part); the kernels on CUDA tensors (one launch counted), the
+    shard's part); one kernel on CUDA tensors (one launch counted), the
     twin on CPU tensors."""
     _check_gathered(gathered, x, (x.shape[0], 2, x.shape[-1]))
     if not 0 <= index < gathered.shape[0]:
@@ -666,19 +773,19 @@ def group_norm_shard_backward_apply(x, scale, bias, stats, dy, gathered, index: 
         return group_norm_shard_backward_apply_plain(x, scale, bias, stats, dy, gathered, index,
                                                      groups, count_hw, relu)
     _check_backward(x, scale, bias, stats, dy, groups)
+    plan = _shard_plan_for(x, groups, 2)
     lib = _lib()
     B, H, W, C = x.shape
     dx = torch.empty_like(x)
     dscale = torch.empty(C, device=x.device, dtype=torch.float32)
     dbias = torch.empty(C, device=x.device, dtype=torch.float32)
-    sums = torch.empty(B * 2 * C, device=x.device, dtype=torch.float32)
-    table = torch.empty(B * 5 * C, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = lib.crossloc_gn_shard_backward_apply(
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
-            gathered.data_ptr(), sums.data_ptr(), table.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), index, gathered.shape[0], B, H * W,
-            int(count_hw), C, groups, int(relu), int(x.dtype == torch.bfloat16), _stream(x))
+            gathered.data_ptr(), dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), index,
+            gathered.shape[0], B, H * W, int(count_hw), C, groups, plan.apply_cb,
+            plan.apply_rows, plan.apply_threads, int(relu), int(x.dtype == torch.bfloat16),
+            _stream(x))
     _raise_on(err, lib, "shard backward apply")
     group_norm_shard_backward_apply.launches += 1
     return dx, dscale, dbias
@@ -686,4 +793,4 @@ def group_norm_shard_backward_apply(x, scale, bias, stats, dy, gathered, index: 
 
 for _entry in (group_norm_shard_stats, group_norm_shard_apply, group_norm_shard_backward_sums,
                group_norm_shard_backward_apply):
-    _entry.launches = 0  # launch sequences on CUDA tensors; CPU calls never count
+    _entry.launches = 0  # kernel launches on CUDA tensors; CPU calls never count

@@ -548,16 +548,22 @@ def test_vanilla_net_on_the_card_matches_the_cpu(card):
 # H splitting into 2 and 4 blocks; group sizes 1, 16 and 64, C not a power of two
 SHARD_SHAPES = [(2, 32, 45, 32, 32), (2, 12, 9, 512, 32), (1, 8, 12, 2048, 32),
                 (3, 8, 13, 96, 32)]
+# at the edges of `_shard_plan`: blocks whose rows do not divide into the CTAs'
+# rows (B=1 at 60x90, clusters of 16), C=2048 over odd rows (a reduction block
+# of 64 channels, an apply block of half a row in f32), group size 1 with 64
+# groups, the 512-thread reduction CTAs at stem2's width, one group of 256
+# channels, and batches of 12 and 3 at the stem widths, whose backward-sums
+# CTAs aim at 341 threads (2^16 over 192 CTAs): the plan takes 320, whole warps
+SHARD_EDGE_SHAPES = [(1, 60, 90, 512, 32), (2, 28, 37, 2048, 32), (1, 20, 46, 64, 64),
+                     (4, 240, 360, 64, 32), (2, 12, 18, 256, 1), (12, 60, 90, 32, 32),
+                     (12, 60, 90, 64, 32), (3, 60, 90, 128, 32)]
 
 
-@pytest.mark.parametrize("splits", [2, 4])
-@pytest.mark.parametrize("relu", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", SHARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
-def test_cross_shard_entries_match_their_twins(card, shape, dtype, relu, splits):
+def _cross_shard_against_twins(card, shape, dtype, relu, splits, y_close):
     """Each of the four entries on the card against its plain twin on the
-    same inputs (the kernels' statistics fed to both), and the merged
-    blocks against the plain K1 twin on the whole image."""
+    same inputs (the kernels' statistics fed to both), and the merged blocks
+    against the plain K1 twin on the whole image; `y_close(y, ref)` holds
+    the forward's outputs."""
     from crossloc_tpu_torch import ops
 
     B, H, W, C, G = shape
@@ -574,12 +580,12 @@ def test_cross_shard_entries_match_their_twins(card, shape, dtype, relu, splits)
     for t in xs:
         y, st = ops.group_norm_shard_apply(t, s, b, stats, G, relu=relu)
         yp, stp = ops.group_norm_shard_apply_plain(t, s, b, stats, G, relu=relu)
-        assert float((y.float() - yp.float()).abs().max()) <= tol
+        assert y_close(y, yp)
         assert float((st - stp).abs().max()) <= 1e-4 * float(stp.abs().max())
         ys.append(y)
         sts.append(st)
-    whole = group_norm_relu_plain(x, s, b, G, relu=relu).float()
-    assert float((torch.cat(ys, 1).float() - whole).abs().max()) <= tol
+    whole = group_norm_relu_plain(x, s, b, G, relu=relu)
+    assert y_close(torch.cat(ys, 1), whole)
     sums = torch.stack([ops.group_norm_shard_backward_sums(t, s, b, st, d, G, relu)
                         for t, st, d in zip(xs, sts, dys)])
     sums_p = torch.stack([ops.group_norm_shard_backward_sums_plain(t, s, b, st, d, G, relu)
@@ -599,3 +605,78 @@ def test_cross_shard_entries_match_their_twins(card, shape, dtype, relu, splits)
         1.0, float(dx_ref.float().abs().max()))
     assert float((ds - ds_ref).abs().max()) <= 1e-4 * float(ds_ref.abs().max())
     assert float((db - db_ref).abs().max()) <= 1e-4 * float(db_ref.abs().max())
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHARD_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cross_shard_entries_match_their_twins(card, shape, dtype, relu, splits):
+    """The entries against their twins; y to 1e-4 (f32) or 2e-2 (bf16)."""
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    _cross_shard_against_twins(card, shape, dtype, relu, splits,
+                               lambda y, r: float((y.float() - r.float()).abs().max()) <= tol)
+
+
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHARD_EDGE_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_cross_shard_entries_match_their_twins_at_the_plan_edges(card, shape, dtype, relu,
+                                                                  splits):
+    """The entries against their twins at the planner's edges; y to 1e-4 in
+    f32, and in bf16 to one rounding of the output (1e-2 + 2^-7 of |y|, as
+    K1's bf16 checks: these shapes reach |y| >= 4, where one bf16 step is
+    2^-5)."""
+    def y_close(y, r):
+        err = (y.float() - r.float()).abs()
+        if dtype == "float32":
+            return float(err.max()) <= 1e-4
+        return bool((err <= 1e-2 + 2.0**-7 * r.float().abs()).all())
+
+    _cross_shard_against_twins(card, shape, dtype, relu, splits, y_close)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_shard_entries_are_deterministic(card, dtype):
+    """Two runs of each cross-shard entry give the same bits: the reductions
+    merge in a fixed order (no float atomics)."""
+    from crossloc_tpu_torch import ops
+
+    B, H, W, C, G = 4, 60, 90, 512, 32
+    x, s, b = _inputs((B, H, W), C, getattr(torch, dtype), card, seed=21)
+    dy = _off_kink_dy(x, s, b, G, seed=22)
+    xs = [t.contiguous() for t in x.chunk(2, 1)]
+    d0 = dy.chunk(2, 1)[0].contiguous()
+
+    def run():
+        stats = torch.stack([ops.group_norm_shard_stats(t, G) for t in xs])
+        y, st = ops.group_norm_shard_apply(xs[0], s, b, stats, G)
+        sums = ops.group_norm_shard_backward_sums(xs[0], s, b, st, d0, G)
+        got = ops.group_norm_shard_backward_apply(xs[0], s, b, st, d0,
+                                                  torch.stack([sums, sums]), 1, G, H * W)
+        return (stats, y, st, sums) + got
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for a, r in zip(first, second):
+        assert torch.equal(a, r)
+
+
+def test_cross_shard_entries_launch_one_kernel_each(card):
+    """Each entry counts one launch per call on a CUDA tensor, and a shape
+    no plan fits raises (no fallback to the twins)."""
+    from crossloc_tpu_torch import ops
+
+    x, s, b = _inputs((2, 8, 12), 64, torch.float32, card)
+    entries = (ops.group_norm_shard_stats, ops.group_norm_shard_apply,
+               ops.group_norm_shard_backward_sums, ops.group_norm_shard_backward_apply)
+    n0 = [f.launches for f in entries]
+    stats = ops.group_norm_shard_stats(x, 32)[None]
+    _, st = ops.group_norm_shard_apply(x, s, b, stats, 32)
+    sums = ops.group_norm_shard_backward_sums(x, s, b, st, x, 32)[None]
+    ops.group_norm_shard_backward_apply(x, s, b, st, x, sums, 0, 32, 96)
+    assert [f.launches for f in entries] == [n + 1 for n in n0]
+    wide, ws, wb = _inputs((1, 4, 4), 2048, torch.float32, card)
+    with pytest.raises(ValueError, match="no cross-shard plan"):
+        ops.group_norm_shard_stats(wide, 1)  # one group of 512 vectors: wider than a CTA

@@ -9,7 +9,12 @@ CTAs, stem3 a cluster of 16, stem1 and stem2 the four-kernel design. In f32
 and bf16; every
 cluster plan obeys the limits of TMA and of Hopper's clusters. The kernels
 themselves run only on the card (`tests/test_torch_cuda.py`).
+
+The cross-shard kernels' planner (`_shard_plan`) at every shape those
+kernels meet on the mesh's "spatial" axis: the coord net's layers, the MLR,
+DUC and tiny-net widths, each image split into 2 and 4 row blocks.
 """
+import numpy as np
 import pytest
 import torch
 
@@ -17,10 +22,13 @@ from crossloc_tpu_torch.ops.groupnorm import (
     _MIN_ROW_BYTES,
     _SLAB_PER_CTA,
     _SMEM_PER_CTA,
+    _SHARD_GRID,
     _cluster_backward_smem,
     _cluster_smem,
     _plan,
     _plan_backward,
+    _shard_plan,
+    _shard_smem,
 )
 
 # (C, H, W, layers per forward, design) of the 28 Conv->GN layers at 480x720
@@ -223,3 +231,117 @@ def test_backward_shapes_tma_cannot_box_take_four_kernel(shape, dtype):
     channels in one group: no block of whole groups reaches 64 bytes)."""
     H, W, C, G = shape
     assert _plan_backward(1, H, W, C, G, dtype).design == "four_kernel"
+
+
+# the cross-shard kernels: (C, H, W) of each norm the spatial axis splits (the
+# coord net at 480x720, the MLR merge norms, the DUC widths, the tiny net at
+# 96x144 with its MLR norms), and whether the grid must fill the card there
+SHARD_WIDTHS = ([(C, H, W, (H, W) != (480, 720) and (H, W) != (240, 360))
+                 for C, H, W, _, _ in PATH]
+                + [(C, 60, 90, False) for C in (1536, 2048, 64, 128, 192, 384)]
+                + [(32, 96, 144, False), (64, 48, 72, False), (128, 24, 36, False),
+                   (128, 12, 18, False), (512, 12, 18, False)])
+SPATIAL_BATCH = 4
+# the spatial runs' batch, one image, and batches with a factor of 3 (the
+# scripts' 12), whose thread counts are not powers of two
+SHARD_BATCHES = [1, 3, SPATIAL_BATCH, 6, 12]
+
+
+def _row_counts(HW, ctas, rows_per_cta, slots):
+    """How often the CTAs' row slots visit each row: CTA i strides over
+    [i * rows_per_cta, +rows_per_cta) from its slot, `slots` rows at a time."""
+    seen = np.zeros(HW, dtype=int)
+    for i in range(ctas):
+        end = min(i * rows_per_cta + rows_per_cta, HW)
+        for j in range(slots):
+            seen[i * rows_per_cta + j:end:slots] += 1
+    return seen
+
+
+@pytest.mark.parametrize("batch", SHARD_BATCHES, ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("tensors", [1, 2], ids=["stats", "backward"])
+@pytest.mark.parametrize("splits", [2, 4])
+@pytest.mark.parametrize("shape", SHARD_WIDTHS, ids=lambda s: "x".join(map(str, s[:3])))
+def test_shard_plan_covers_each_block_within_the_card(shape, splits, tensors, dtype, batch):
+    C, H, W, main = shape
+    G = min(32, C)
+    HW = H // splits * W
+    plan = _shard_plan(batch, HW, C, G, dtype, tensors)
+    item = torch.empty((), dtype=dtype).element_size()
+    gs = C // G
+    for cb, threads in ((plan.cb, plan.threads), (plan.apply_cb, plan.apply_threads)):
+        # whole groups in whole 16-byte vectors, one thread a vector of a row
+        assert cb % gs == 0 and C % cb == 0 and cb * item % 16 == 0
+        vpr = cb * item // 16
+        assert threads % vpr == 0 and vpr <= threads <= 512
+    # a reduction whose rows divide a warp takes whole warps (its shuffles
+    # span all 32 lanes)
+    reduce_vpr = plan.cb * item // 16
+    assert 32 % reduce_vpr or plan.threads % 32 == 0
+    # the reductions: at least 64 bytes a pixel (K1's block); the applies:
+    # whole rows where a CTA's 256 threads span them (all but the MLR norms
+    # in f32), else half rows
+    assert plan.cb * item >= _MIN_ROW_BYTES
+    assert plan.apply_cb == (C if C * item <= 256 * 16 else C // 2)
+    slots = plan.threads // (plan.cb * item // 16)
+    # the reductions' cluster and the applies' row ranges visit each row once
+    assert 1 <= plan.cluster <= 16
+    assert (plan.cluster - 1) * plan.rows_per_cta < HW <= plan.cluster * plan.rows_per_cta
+    assert (_row_counts(HW, plan.cluster, plan.rows_per_cta, slots) == 1).all()
+    chunks = -(-HW // plan.apply_rows)
+    apply_slots = plan.apply_threads // (plan.apply_cb * item // 16)
+    assert plan.apply_rows >= apply_slots or chunks == 1
+    assert (_row_counts(HW, chunks, plan.apply_rows, apply_slots) == 1).all()
+    # the smallest cluster that reaches the planned grid (or holds a row a slot)
+    pairs = batch * C // plan.cb
+    target = _SHARD_GRID
+    # (or the largest whose shared memory fits: a cluster's rank 0 holds every
+    # rank's sums, which a batch of 12 at C=2048 in bf16 cannot double)
+    assert (pairs * plan.cluster >= target or plan.cluster in (16, -(-HW // 1))
+            or plan.rows_per_cta <= slots
+            or _shard_smem(item, plan.cb, plan.threads, 2 * plan.cluster) > _SMEM_PER_CTA)
+    assert plan.cluster == 1 or pairs * (plan.cluster // 2) < target
+    assert plan.smem_bytes == _shard_smem(item, plan.cb, plan.threads, plan.cluster)
+    assert plan.smem_bytes <= _SMEM_PER_CTA == 227 * 1024
+    # the 26 layers at 120x180 and 60x90 fill the card's 132 SMs from the
+    # spatial runs' batch on (one image of 128 channels holds 8 blocks of 64
+    # bytes: 128 CTAs in clusters of 16)
+    if main and batch >= SPATIAL_BATCH:
+        assert pairs * plan.cluster >= 132
+        assert batch * C // plan.apply_cb * chunks >= 132
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_shard_plan_refuses_what_no_cta_holds(dtype):
+    # one group wider than 256 vectors of 16 bytes, or no rows
+    assert _shard_plan(4, 100, 4096, 1, dtype) is None
+    assert _shard_plan(4, 0, 512, 32, dtype) is None
+    assert _shard_plan(4, 100, 2048, 2, dtype) is not None
+
+
+def test_cross_shard_entries_take_the_twins_on_the_cpu():
+    """A CPU tensor takes each entry's plain twin and counts no launch."""
+    from crossloc_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 6, 5, 64, generator=g) * 2 + 3
+    s, b = torch.rand(64, generator=g) + 0.5, torch.randn(64, generator=g)
+    dy = torch.randn(x.shape, generator=g)
+    entries = (ops.group_norm_shard_stats, ops.group_norm_shard_apply,
+               ops.group_norm_shard_backward_sums, ops.group_norm_shard_backward_apply)
+    n0 = [f.launches for f in entries]
+    stats = ops.group_norm_shard_stats(x, 32)
+    assert torch.equal(stats, ops.group_norm_shard_stats_plain(x, 32))
+    gathered = torch.stack([stats, stats])
+    y, st = ops.group_norm_shard_apply(x, s, b, gathered, 32)
+    yp, stp = ops.group_norm_shard_apply_plain(x, s, b, gathered, 32)
+    assert torch.equal(y, yp) and torch.equal(st, stp)
+    sums = ops.group_norm_shard_backward_sums(x, s, b, st, dy, 32)
+    assert torch.equal(sums, ops.group_norm_shard_backward_sums_plain(x, s, b, st, dy, 32))
+    got = ops.group_norm_shard_backward_apply(x, s, b, st, dy, torch.stack([sums, sums]), 1, 32,
+                                              60)
+    ref = ops.group_norm_shard_backward_apply_plain(x, s, b, st, dy, torch.stack([sums, sums]),
+                                                    1, 32, 60)
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+    assert [f.launches for f in entries] == n0
