@@ -23,7 +23,11 @@ Phases:
            three-pass or four-kernel),
            beside the plain version, one PyTorch library call and the bytes
            bound; totals over one forward / step of the coord net (28 calls)
-           and of the finetune path (67 K1, 33 K1-bwd);
+           and of the finetune path (67 K1, 33 K1-bwd); the stems' sums
+           (planned, old, bound) in the kernels line; K1 at the stems at
+           bench's B=128 bf16 in both designs against the plain twin, timed
+           in turns, and stem1's two rejected grid backwards beside the
+           four-kernel design;
   forward  full-width coord+MLE net at 480x720, B=8, seeded weights: kernel
            path against the same net through the plain norm, and 28 kernel
            launches per forward; a full-width ProjHead on that net's encoder
@@ -126,9 +130,12 @@ Phases:
            then the quickstart twin on cuda (400 steps of the tiny net, B=4,
            96x144); `arms.json` in the out dir. The kernels phase holds K1 and
            K1-bwd at the tiny net's shapes (B=4 and B=2, 96x144) too;
-  profile  (extra, not in the default run) kernel-time breakdown of one
-           image -> pose batch, one coord and one semantics training step, one
-           finetune step and one e2e step with torch.profiler;
+  profile  (extra, not in the default run) the CUDA kernels of one K1 and
+           K1-bwd call at the stems in both designs, with the three-pass
+           split (one for K1, at most two for a grid K1-bwd); kernel-time
+           breakdown of one image -> pose batch, one coord and one semantics
+           training step, one finetune step and one e2e step with
+           torch.profiler;
   converge (extra) the coord net's convergence run through the unchanged
            encoder_pretrain.sh and validate_encoder_pretrain.sh
            (crossloc_tpu_torch/tools/convergence.py: 480 plane frames at
@@ -149,10 +156,12 @@ CUDA device is present, or if the port's package is not beside this file.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -284,6 +293,7 @@ SPATIAL_BATCH = 4
 SHARD_ENTRIES = ("groupnorm_shard_stats", "groupnorm_shard_apply",
                  "groupnorm_shard_backward_sums", "groupnorm_shard_backward_apply")
 S_GATHER = 2
+SHORT = {"float32": "f32", "bfloat16": "bf16"}  # dtype names in the kernels line's keys
 YARDSTICKS = ("sum", "copy", "add")  # PyTorch's passes over an entry's bytes (f32)
 
 
@@ -357,6 +367,55 @@ def _path_totals(rows, col: int, keys) -> dict:
     for d in ("float32", "bfloat16"):
         by = {(r["C"], r["relu"]): r for r in rows if r["dtype"] == d}
         out[d] = {k: sum(s[col] * by[(s[0], s[3])][k] for s in FT_PATH_SHAPES) for k in keys}
+    return out
+
+
+def _where(plan) -> str:
+    """A plan of K1 or K1-bwd as a row prints it."""
+    if plan.design == "cluster":
+        return (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.threads} threads, "
+                f"{plan.smem_bytes} B smem")
+    if plan.design == "grid":
+        held = min(plan.nbox * plan.box_rows, plan.rows_per_cta)
+        return (f"grid of {plan.grid} CTAs, {plan.cluster} a unit, cb={plan.cb}, "
+                f"{held} of {plan.rows_per_cta} rows held, {plan.threads} threads, "
+                f"{plan.smem_bytes} B smem")
+    return plan.design
+
+
+def _kernel_name(name: str) -> str:
+    """A CUDA kernel's own name, without its namespace, template arguments
+    and parameters ("void (anonymous namespace)::gn_grid_kernel<float>(...)"
+    -> "gn_grid_kernel")."""
+    found = re.search(r"(\w+)(?:<[^()]*>)?\(", name)
+    return found.group(1) if found else name
+
+
+@contextlib.contextmanager
+def _old_stem_designs():
+    """K1 and K1-bwd planned as before the grid design: the shapes it takes
+    (the stems) run the three-pass and four-kernel designs instead."""
+    from crossloc_tpu_torch.ops import groupnorm as gn
+
+    plan, plan_backward = gn._plan, gn._plan_backward
+    gn._plan = lambda *a: gn._THREE_PASS if plan(*a).design == "grid" else plan(*a)
+    gn._plan_backward = lambda *a: (gn._FOUR_KERNEL if plan_backward(*a).design == "grid"
+                                    else plan_backward(*a))
+    try:
+        yield
+    finally:
+        gn._plan, gn._plan_backward = plan, plan_backward
+
+
+def _stem_sums(rows, old: str) -> dict:
+    """Per dtype, the sums over the two stems (C=32 at 480x720, C=64 at
+    240x360) of the planned design's, the old design's (`old`: the row's
+    three_pass_ms or four_kernel_ms) and the bound's device ms."""
+    out = {}
+    for d in ("float32", "bfloat16"):
+        st = [r for r in rows if r["dtype"] == d and (r["C"], r["H"]) in ((32, 480), (64, 240))]
+        assert len(st) == 2, st
+        out[d] = {k: sum(r[k] for r in st) for k in ("ms", old, "bound_ms")}
     return out
 
 
@@ -500,13 +559,23 @@ class Smoke:
                 f"plain {t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
+        stems = _stem_sums(rows, "three_pass_ms")
+        for dname, t in stems.items():
+            log(f"K1 over the two stems, {dname}, B={BATCH}: planned {t['ms']:.4f} ms, "
+                f"three-pass {t['three_pass_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"(bound / planned = {t['bound_ms'] / t['ms']:.1%})")
         self.kernels["groupnorm"] = dict(
             name="groupnorm", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:57",
             max_abs_err=worst, ms=f32["ms"], plain_ms=f32["plain_ms"],
             library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
-            three_pass_ms=f32["three_pass_ms"])
+            three_pass_ms=f32["three_pass_ms"],
+            **{f"stems_{SHORT[d]}_{k}": stems[d][key]
+               for d in ("float32", "bfloat16")
+               for k, key in (("ms", "ms"), ("old_ms", "three_pass_ms"),
+                              ("bound_ms", "bound_ms"))})
         self._backward_kernel(flush)
+        self._bench_stem_rows(flush)
         self._tiny_kernels(flush, gen)
 
     def _tiny_kernels(self, flush, gen):
@@ -614,16 +683,14 @@ class Smoke:
                 nbytes = 2 * x.numel() * x.element_size() + 2 * C * 4
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 8 * x.numel() / FP32_FLOPS)
                 row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, design=plan.design,
-                           cluster=plan.cluster, cb=plan.cb, threads=plan.threads,
+                           cluster=plan.cluster, cb=plan.cb, threads=plan.threads, grid=plan.grid,
                            ms=(dev[1] + dev[2]) / 2, call_ms=(call[1] + call[2]) / 2,
                            three_pass_ms=(dev[0] + dev[3]) / 2,
                            three_pass_call_ms=(call[0] + call[3]) / 2, turns_ms=dev,
                            turns_call_ms=call, plain_ms=p_ms, library_ms=l_ms, bound_ms=bound,
                            per_forward=count)
                 rows.append(row)
-                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.threads} threads, "
-                         f"{plan.smem_bytes} B smem" if plan.design == "cluster" else "three_pass")
-                log(f"  K1 time C={C} {H}x{W} B={B} {dname} relu={relu} [{where}]: device "
+                log(f"  K1 time C={C} {H}x{W} B={B} {dname} relu={relu} [{_where(plan)}]: device "
                     f"{row['ms']:.4f} ms (three-pass {row['three_pass_ms']:.4f}; turns "
                     + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
                     f"(three-pass {row['three_pass_call_ms']:.4f}), plain {p_ms:.4f} ms, "
@@ -649,6 +716,7 @@ class Smoke:
         proj_rows, w = self._backward_rows(flush, BATCH, [s[:4] for s in PROJ_SHAPES], seed=5)
         worst = max(worst, w)
         self._large_mean_backward_check()
+        options = self._stem1_backward_options(flush)
         keys = ("ms", "four_kernel_ms", "plain_ms", "library_ms", "bound_ms")
         tot = {d: {k: sum(c * r[k] for r in rows for (C, H, W, relu, c) in GN_PATH_SHAPES
                           if r["dtype"] == d and (r["C"], r["relu"]) == (C, relu)) for k in keys}
@@ -662,7 +730,7 @@ class Smoke:
             json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), flush_bytes=FLUSH_BYTES,
                            rows=rows + ft_rows, duc_rows=duc_rows, proj_rows=proj_rows,
                            per_step=tot, per_finetune_step=ft, per_semantics_step=sem,
-                           per_projhead_step=proj), f, indent=1)
+                           per_projhead_step=proj, stem1_options=options), f, indent=1)
         for dname, t in tot.items():
             log(f"K1-bwd over one {dname} training step's 28 calls (B={TRAIN_BATCH}, 480x720), "
                 f"device time: planned {t['ms']:.4f} ms, four-kernel {t['four_kernel_ms']:.4f} ms, "
@@ -684,12 +752,189 @@ class Smoke:
                 f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
                 f"{t['bound_ms']:.4f} ms")
         f32 = tot["float32"]
+        stems = _stem_sums(rows, "four_kernel_ms")
+        for dname, t in stems.items():
+            log(f"K1-bwd over the two stems, {dname}, B={TRAIN_BATCH}: planned {t['ms']:.4f} ms, "
+                f"four-kernel {t['four_kernel_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+                f"(bound / planned = {t['bound_ms'] / t['ms']:.1%})")
         self.kernels["groupnorm_backward"] = dict(
             name="groupnorm_backward", route="cuda", source="crossloc_tpu_torch/csrc/groupnorm.cu",
             replaces="crossloc_tpu/ops/pallas_groupnorm.py:141",
             max_abs_err=max(worst, ft_worst), ms=f32["ms"], plain_ms=f32["plain_ms"],
             library_ms=f32["library_ms"], bound_ms=f32["bound_ms"], bound_by="bytes",
-            four_kernel_ms=f32["four_kernel_ms"])
+            four_kernel_ms=f32["four_kernel_ms"],
+            **{f"stems_{SHORT[d]}_{k}": stems[d][key]
+               for d in ("float32", "bfloat16")
+               for k, key in (("ms", "ms"), ("old_ms", "four_kernel_ms"),
+                              ("bound_ms", "bound_ms"))})
+
+    def _stem1_backward_options(self, flush):
+        """The grid backward at stem1 (B=TRAIN_BATCH, f32 and bf16, ReLU),
+        whose x + dy at 64 bytes a pixel (44 MB an image) outgrow the card's
+        shared memory, in the two plans the planner passes over: (a) 32-byte
+        channel blocks held whole, (b) 64-byte blocks holding what the card
+        takes and streaming the rest; each against the plain twin and timed
+        in turns with the four-kernel design it keeps (four-kernel, a, b, b,
+        a, four-kernel)."""
+        import torch
+
+        from crossloc_tpu_torch.ops import group_norm_relu_backward_plain, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import (_SMS, _four_kernel_backward,
+                                                      _grid_backward, _grid_plan_block, _launch)
+
+        C, H, W, relu, _ = GN_PATH_SHAPES[0]
+        B, G, out = TRAIN_BATCH, 32, []
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        for dtype in (torch.float32, torch.bfloat16):
+            item = torch.empty((), dtype=dtype).element_size()
+            x = (torch.randn(B, H, W, C, device="cuda", generator=gen) * 2.0 + 3.0).to(dtype)
+            s = torch.randn(C, device="cuda", generator=gen)
+            b = torch.randn(C, device="cuda", generator=gen)
+            pre = group_norm_relu_plain(x.float(), s, b, G, 1e-5, False)
+            dy = (torch.randn(x.shape, device="cuda", generator=gen) * (pre.abs() > 1e-3)).to(dtype)
+            del pre
+            st = torch.empty(B, G, 2, device="cuda")
+            _launch(x, s, b, G, 1e-5, relu, st)
+            ref = group_norm_relu_backward_plain(x, s, b, dy, G, 1e-5, relu)
+            plans = {"a_32_byte_blocks": _grid_plan_block(B, H * W, C, G, item, 2, 32 // item,
+                                                          False, _SMS)[1],
+                     "b_64_byte_streaming": _grid_plan_block(B, H * W, C, G, item, 2, 64 // item,
+                                                             True, _SMS)[1]}
+            rel = 1e-4 + (2.0**-7 if dtype == torch.bfloat16 else 0.0)
+            for name, plan in plans.items():
+                got = _grid_backward(x, s, b, st, dy, G, relu, plan)
+                torch.cuda.synchronize()
+                for a_, r_ in zip(got, ref):
+                    a_, r_ = a_.float(), r_.float()
+                    lim = 1e-4 * r_.abs().max() + (rel * r_.abs() if r_.dim() == 4 else 0.0)
+                    if not bool(((a_ - r_).abs() <= lim).all()):
+                        raise AssertionError(f"K1-bwd stem1 option {name} disagrees with plain")
+                del got
+            del ref
+            fns = [lambda: _four_kernel_backward(x, s, b, st, dy, G, relu)] + [
+                (lambda p=p: _grid_backward(x, s, b, st, dy, G, relu, p)) for p in plans.values()]
+            dev = device_ms(fns + fns[::-1], flush)
+            ms = [(dev[i] + dev[-1 - i]) / 2 for i in range(len(fns))]
+            row = dict(dtype=str(dtype)[6:], B=B, four_kernel_ms=ms[0], turns_ms=dev,
+                       **{f"{n}_ms": t for n, t in zip(plans, ms[1:])},
+                       plans={n: p._asdict() for n, p in plans.items()})
+            out.append(row)
+            log(f"  K1-bwd stem1 options C={C} {H}x{W} B={B} {row['dtype']}: four-kernel "
+                f"{ms[0]:.4f} ms, (a) 32-byte blocks [{_where(plans['a_32_byte_blocks'])}] "
+                f"{ms[1]:.4f} ms, (b) 64-byte streaming [{_where(plans['b_64_byte_streaming'])}] "
+                f"{ms[2]:.4f} ms (turns " + "/".join(f"{t:.4f}" for t in dev) + "); both held "
+                "against the plain twin")
+            del x, dy
+        return out
+
+    def _stem_kernels_per_call(self):
+        """At each stem (B=8, f32 and bf16): the CUDA kernels one call of K1
+        and of K1-bwd launches in the planned design and in the old one, with
+        each kernel's device us (one torch.profiler session); the planned K1
+        must be one kernel, the planned K1-bwd at most two where it takes the
+        grid design. Prints the three-pass split (stats, finalize, apply)."""
+        import torch
+
+        from crossloc_tpu_torch.ops.groupnorm import (_four_kernel_backward, _launch,
+                                                      _plan_backward, _three_pass,
+                                                      group_norm_relu_backward)
+
+        calls, keep = [], []
+        for C, H, W, relu, _ in GN_PATH_SHAPES[:2]:
+            for dtype in (torch.float32, torch.bfloat16):
+                gen = torch.Generator(device="cuda").manual_seed(C)
+                x = (torch.randn(BATCH, H, W, C, device="cuda", generator=gen) * 2 + 3).to(dtype)
+                s = torch.randn(C, device="cuda", generator=gen)
+                b = torch.randn(C, device="cuda", generator=gen)
+                dy = torch.randn(x.shape, device="cuda", generator=gen).to(dtype)
+                st = torch.empty(BATCH, 32, 2, device="cuda")
+                keep.append((x, s, b, dy, st))
+                grid_bwd = _plan_backward(BATCH, H, W, C, 32, dtype).design == "grid"
+                for name, fn in (
+                        ("K1 planned", lambda x=x, s=s, b=b, st=st, r=relu:
+                            _launch(x, s, b, 32, 1e-5, r, st)),
+                        ("K1 three-pass", lambda x=x, s=s, b=b, r=relu:
+                            _three_pass(x, s, b, 32, 1e-5, r)),
+                        ("K1-bwd planned", lambda x=x, s=s, b=b, st=st, dy=dy, r=relu:
+                            group_norm_relu_backward(x, s, b, st, dy, 32, r)),
+                        ("K1-bwd four-kernel", lambda x=x, s=s, b=b, st=st, dy=dy, r=relu:
+                            _four_kernel_backward(x, s, b, st, dy, 32, r))):
+                    calls.append((name, C, H, W, str(dtype)[6:], grid_bwd, fn))
+        report = []
+        for (name, C, H, W, dname, grid_bwd, _), ks in zip(
+                calls, self._kernels_per_call([c[-1] for c in calls], times=True)):
+            ks = [(_kernel_name(n), us) for n, us in ks]
+            log(f"  {name} C={C} {H}x{W} B={BATCH} {dname}: {len(ks)} CUDA kernels: "
+                + ", ".join(f"{n} {us:.1f} us" for n, us in ks))
+            report.append(dict(call=name, C=C, dtype=dname, kernels=ks))
+            if name == "K1 planned" and len(ks) != 1:
+                raise AssertionError(f"K1 at C={C} launched {len(ks)} kernels, not 1")
+            if name == "K1-bwd planned" and grid_bwd and len(ks) > 2:
+                raise AssertionError(f"K1-bwd at C={C} launched {len(ks)} kernels")
+        del keep
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "k1_stem_kernels.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), calls=report), f,
+                      indent=1)
+
+    def _bench_stem_rows(self, flush):
+        """K1 at the stems at `tools/bench.py`'s shapes (B=BENCH_BATCH, bf16,
+        the path's ReLU): the planned design and the three-pass one, each
+        held against the plain twin (on chunks of images, as
+        `_bench_k1_check`) and timed in turns (three-pass, planned, planned,
+        three-pass; CUDA graphs of 3 calls, the L2 evicted), beside the
+        bytes bound. Written to `k1_bench_stems.json`."""
+        import torch
+
+        from crossloc_tpu_torch.ops import group_norm_relu, group_norm_relu_plain
+        from crossloc_tpu_torch.ops.groupnorm import _plan, _three_pass
+
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        B, chunk, rows = BENCH_BATCH, 16, []
+        atol, rtol = 1e-2, 2.0**-7
+        for C, H, W, relu, _ in GN_PATH_SHAPES[:2]:
+            x = torch.empty(B, H, W, C, device="cuda", dtype=torch.bfloat16)
+            for i in range(0, B, chunk):
+                x[i:i + chunk] = torch.randn(x[i:i + chunk].shape, device="cuda",
+                                             generator=gen) * 2.0 + 3.0
+            scale = torch.randn(C, device="cuda", generator=gen)
+            bias = torch.randn(C, device="cuda", generator=gen)
+            plan = _plan(B, H, W, C, 32, torch.bfloat16)
+            worst = {}
+            for design, fn in (("planned", group_norm_relu), ("three_pass", _three_pass)):
+                y = fn(x, scale, bias, 32, 1e-5, relu)
+                torch.cuda.synchronize()
+                worst[design] = 0.0
+                for i in range(0, B, chunk):
+                    ref = group_norm_relu_plain(x[i:i + chunk], scale, bias, 32, 1e-5,
+                                                relu).float()
+                    err = (y[i:i + chunk].float() - ref).abs()
+                    if not bool((err <= atol + rtol * ref.abs()).all()):
+                        raise AssertionError(f"K1 {design} disagrees with plain at bench's C={C} "
+                                             f"{H}x{W} B={B}")
+                    worst[design] = max(worst[design], float(err.max()))
+                    del ref, err
+                del y
+                torch.cuda.empty_cache()
+            planned = lambda: group_norm_relu(x, scale, bias, 32, 1e-5, relu)
+            three = lambda: _three_pass(x, scale, bias, 32, 1e-5, relu)
+            dev = device_ms([three, planned, planned, three], flush, n=3, reps=3)
+            bound = 1e3 * (2 * x.numel() * x.element_size() + 2 * C * 4) / HBM_BYTES_PER_S
+            row = dict(C=C, H=H, W=W, B=B, dtype="bfloat16", relu=relu, design=plan.design,
+                       cluster=plan.cluster, cb=plan.cb, grid=plan.grid,
+                       ms=(dev[1] + dev[2]) / 2, three_pass_ms=(dev[0] + dev[3]) / 2,
+                       turns_ms=dev, bound_ms=bound, max_abs_err=worst)
+            rows.append(row)
+            log(f"  K1 bench stem C={C} {H}x{W} B={B} bfloat16 relu={relu} [{_where(plan)}]: "
+                f"max_abs_err planned {worst['planned']:.3e}, three-pass "
+                f"{worst['three_pass']:.3e} (limit {atol:g} + {rtol:g}*|ref|) ok; device "
+                f"{row['ms']:.4f} ms (three-pass {row['three_pass_ms']:.4f}; turns "
+                + "/".join(f"{t:.4f}" for t in dev) + f"), bytes bound {bound:.4f} ms "
+                f"(bound / device = {bound / row['ms']:.1%})")
+            del x
+            torch.cuda.empty_cache()
+        with open(os.path.join(self.out_dir, "k1_bench_stems.json"), "w") as f:
+            json.dump(dict(device=self.device_name, smi=nvidia_smi_line(), rows=rows), f, indent=1)
 
     def _backward_rows(self, flush, B, shapes, seed):
         """K1's backward at each (C, H, W, relu) of `shapes`, batch B, f32 and
@@ -783,14 +1028,14 @@ class Smoke:
                 bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 12 * x.numel() / FP32_FLOPS)
                 row = dict(C=C, H=H, W=W, B=B, dtype=dname, relu=relu, design=plan.design,
                            cluster=plan.cluster, cb=plan.cb, smem_bytes=plan.smem_bytes,
+                           grid=plan.grid,
                            ms=(dev[1] + dev[2]) / 2, four_kernel_ms=(dev[0] + dev[3]) / 2,
                            turns_ms=dev, call_ms=(call[1] + call[2]) / 2,
                            four_kernel_call_ms=(call[0] + call[3]) / 2, turns_call_ms=call,
                            plain_ms=plain, library_ms=lib, bound_ms=bound)
                 rows.append(row)
-                where = (f"cluster of {plan.cluster} CTAs, cb={plan.cb}, {plan.threads} threads, "
-                         f"{plan.smem_bytes} B smem" if plan.design == "cluster" else "four_kernel")
-                log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu} [{where}]: device "
+                log(f"  K1-bwd time C={C} {H}x{W} B={B} {dname} relu={relu} [{_where(plan)}]: "
+                    f"device "
                     f"{row['ms']:.4f} ms (four-kernel {row['four_kernel_ms']:.4f}; turns "
                     + "/".join(f"{t:.4f}" for t in dev) + f"), call {row['call_ms']:.4f} ms "
                     f"(four-kernel {row['four_kernel_call_ms']:.4f}), plain {plain:.4f} ms, "
@@ -2314,16 +2559,31 @@ class Smoke:
         sp = torch.load(out, weights_only=False)
         one = dict(spec, mesh=None, steps=0, profile=False)
         ref1, ref2 = pc.step_check(dict(one, steps=1)), pc.step_check(one)
-        halves = [pc.step_check(dict(one, batch={k: (v[s] if v.dim() and k in (
-            "images", "poses", "labels") else v) for k, v in spec["batch"].items()}))
-            for s in (slice(0, B // 2), slice(B // 2, B))]
-        split = {n: (halves[0]["grads"][n] + halves[1]["grads"][n]) / 2 for n in ref1["grads"]}
+
+        def halves_of(run):
+            """The mean gradient of the batch's two halves, each one step."""
+            hs = [run(dict(one, batch={k: (v[s] if v.dim() and k in (
+                "images", "poses", "labels") else v) for k, v in spec["batch"].items()}))
+                for s in (slice(0, B // 2), slice(B // 2, B))]
+            return {n: (hs[0]["grads"][n] + hs[1]["grads"][n]) / 2 for n in ref1["grads"]}
+
+        split = halves_of(pc.step_check)
+        # the same steps with the stems' norms on the designs they took before
+        # the grid design (three-pass, four-kernel: still the port's beyond
+        # the grid's reach): another reduction order of one process
+        with _old_stem_designs():
+            old1 = pc.step_check(dict(one, steps=1))
+            old_split = halves_of(pc.step_check)
 
         def dist_max(a, b):
             return max(float((a[n].double() - b[n].double()).abs().max()) for n in a)
 
         gmax = max(float(g.abs().max()) for g in ref1["grads"].values())
-        spread = max(dist_max(ref1["grads"], ref2["grads"]), dist_max(ref1["grads"], split))
+        spreads = {"between two runs": dist_max(ref1["grads"], ref2["grads"]),
+                   "against the two halves": dist_max(ref1["grads"], split),
+                   "against the stems' old designs": dist_max(ref1["grads"], old1["grads"]),
+                   "the old designs against their two halves": dist_max(old1["grads"], old_split)}
+        spread = max(spreads.values())
         tol = max(2 * spread, 1e-6 * gmax)
         err = dist_max(sp["grads"], ref1["grads"])
         pmax = float(ref1["preds"].abs().max())
@@ -2339,8 +2599,7 @@ class Smoke:
         log(f"(2) spatial 2, global B={B} at {IMG_H}x{IMG_W}: forward max |diff| {fwd_err:.3e} "
             f"against one process (limit {1e-4 * pmax:.3e} = 1e-4 of max |pred|); gradient max "
             f"|diff| {err:.3e} (limit {tol:.3e} = 2 x the spread of single-process gradients: "
-            f"{dist_max(ref1['grads'], ref2['grads']):.3e} between two runs, "
-            f"{dist_max(ref1['grads'], split):.3e} against the two halves; max |g| {gmax:.3e}); "
+            + ", ".join(f"{v:.3e} {k}" for k, v in spreads.items()) + f"; max |g| {gmax:.3e}); "
             f"first step's loss {sp['loss'][0]:.6f} against {first:.6f} (relative {d_loss:.2e}, "
             f"limit 1e-5); launches per step, each rank's own: cross-shard "
             f"{[r['shard_launches'] for r in ranks]}, K1 / K1-bwd "
@@ -2521,11 +2780,12 @@ class Smoke:
                 cuda_kernels_per_call=per_call[n][0])
 
     @staticmethod
-    def _kernels_per_call(fns) -> list:
-        """The names of the CUDA kernels one call of each fn launches: one
-        torch.profiler session, the calls separated by a marker kernel (a
-        fill of a one-element tensor); tried twice where the trace lost a
-        marker."""
+    def _kernels_per_call(fns, times: bool = False) -> list:
+        """The names of the CUDA kernels one call of each fn launches (with
+        `times`, (name, device us) pairs): one torch.profiler session, the
+        calls separated by a marker kernel (a fill of a one-element tensor);
+        tried three times where the trace lost a marker (the card's profiler
+        has returned an empty trace now and then)."""
         import torch
         from torch.profiler import ProfilerActivity, profile
 
@@ -2533,7 +2793,7 @@ class Smoke:
         for fn in fns:
             fn()
         torch.cuda.synchronize()
-        for _ in range(2):
+        for _ in range(3):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for fn in fns:
                     mark.fill_(1.0)
@@ -2548,7 +2808,7 @@ class Smoke:
                 if "fill" in e.name.lower():
                     groups.append([])
                 elif groups:
-                    groups[-1].append(e.name)
+                    groups[-1].append((e.name, e.time_range.elapsed_us()) if times else e.name)
             if len(groups) == len(fns) + 1 and not groups[-1]:
                 return groups[:-1]
         raise AssertionError(f"the profiler's trace lost markers: {[e.name for e in events]}")
@@ -3232,7 +3492,9 @@ class Smoke:
     def phase_profile(self):
         """Where the time of one image -> pose batch, one training step (coord
         and semantics), one finetune step and one e2e step goes, by kernel
-        group (torch.profiler), and the device's busy share of the wall time."""
+        group (torch.profiler), and the device's busy share of the wall time;
+        first, the CUDA kernels of one K1 and K1-bwd call at the stems."""
+        self._stem_kernels_per_call()
         self._profile_serve()
         self._profile_step(self._model, TRAIN_BATCH, "train")
         self._profile_step(lambda dev, dtype: self._model(dev, dtype, "semantics", None),
@@ -3252,7 +3514,9 @@ class Smoke:
         groups = {}
         for e in kernels:
             n = e.name.lower()
-            key = ("K1-bwd groupnorm" if "gnb_" in n
+            key = ("K1-bwd groupnorm (grid)" if "gnb_grid" in n
+                   else "K1-bwd groupnorm" if "gnb_" in n
+                   else "K1 groupnorm (grid)" if "gn_grid" in n
                    else "K1 groupnorm" if any(k in n for k in ("gn_stats", "gn_finalize",
                                                                "gn_apply", "gn_cluster",
                                                                "gn_shard"))

@@ -8,7 +8,7 @@
 // Bound: memory bandwidth. The work is a few flops per element, far below
 // the card's flop/byte balance. The least traffic is one read of x and one
 // write of y. The TPU kernel got there by holding one image in VMEM; one
-// 60x90x512 f32 image (11 MB) does not fit an SM, so this file has two
+// 60x90x512 f32 image (11 MB) does not fit an SM, so this file has three
 // designs, chosen per shape by ops/groupnorm.py::_plan:
 //
 // 1. Cluster design (gn_cluster_kernel): one launch, x read once from device
@@ -37,9 +37,40 @@
 //    of pulled, and direct stores instead of a TMA store were each measured
 //    faster on the card (PERF.md).
 //
-// 2. Three-pass design, for slabs larger than 8 CTAs can hold (on the main
-//    path the two stem layers at 480x720 and 240x360). Two reads of x, one
-//    write of y, and a scratch of per-chunk partials:
+// 2. Grid design (gn_grid_kernel), for slabs larger than a cluster holds:
+//    on the main path the two stem layers at 480x720 and 240x360, whose
+//    slabs (5.5-22 MB) fit the card's shared memory (132 SMs x 200 KB, 27
+//    MB) but not a cluster's. One cooperative launch of one CTA an SM, x
+//    read once. A unit (image, channel block: whole L2 lines or the whole
+//    pixel, else K1's 64-byte block) spreads over k <= 132 CTAs; pair
+//    unit * k + rank goes to CTA (pair mod grid), each CTA taking its pairs
+//    in order, and k divides the grid where units fill several rounds. Per
+//    pair: TMA loads of the rank's rows (a 64-byte L2 promotion: the units
+//    of one image run one after another, so a wider promotion fetches other
+//    blocks' bytes too early), per-channel sums of x - pivot and (x -
+//    pivot)^2 as the boxes land (the pivot is the unit's first row, read by
+//    every rank: one pass, no division), the rank's sums to a scratch of
+//    the call's own, an arrival on the unit's integer counter (set to 0 by
+//    the kernel itself before one grid barrier), the unit's sums added over
+//    the ranks in a fixed order by every CTA of the unit alike (16-byte
+//    loads all in flight), the group statistics as the cross-shard design
+//    takes them, and the apply from shared memory with 16-byte stores; as
+//    each box is stored it takes the next pair's rows, which are summed a
+//    few boxes behind. Where the slab outgrows the card (stem1 in f32, 44
+//    MB of 128-byte rows) each CTA holds what 200 KB takes and streams the
+//    rest from device memory, in the sums and again in the apply (from the
+//    L2 in part): 1.4 reads of x instead of 2.
+//    What bounds it on an H100: every unit spans most of the card, so each
+//    round of pairs ends in the statistics tail, the unit's barrier and the
+//    merge, with the device memory idle while every SM waits on the slowest
+//    rank (the apply itself runs near the memory's rate); 55-65 % of the
+//    bytes bound at the stems, against 36-56 % for the three-pass design
+//    (PERF.md). Two CTAs an SM (with half the slab each), 256-byte L2
+//    promotion, a second statistics pass over shared memory, and merging
+//    (count, mean, M2) by one warp a group were each measured slower.
+//
+// 3. Three-pass design, for slabs larger than the grid design holds. Two
+//    reads of x, one write of y, and a scratch of per-chunk partials:
 //   (a) gn_stats:    each block takes one (image, chunk of H*W rows) and reads
 //                    its rows as contiguous 16-byte vectors; every thread keeps
 //                    Welford (mean, M2) for its 4 (f32) or 8 (bf16) channels;
@@ -51,10 +82,11 @@
 //   (c) gn_apply:    y = max((x - mu) * a + beta, 0) over contiguous NHWC,
 //                    16-byte loads and stores.
 //
-// Both designs centre before the scale, which keeps the precision of the
-// plain version when |mu| >> std, and neither forms E[x^2] - mu^2 (the TPU
-// kernel's one-pass formula, which can go negative through cancellation).
-// Under autograd both write (mu, rstd) per (image, group) to `stats` (a null
+// Every design centres before the scale, which keeps the precision of the
+// plain version when |mu| >> std, and none forms E[x^2] - mu^2 (the TPU
+// kernel's one-pass formula, which can go negative through cancellation;
+// the grid design's sums are about a pivot drawn from the data). Under
+// autograd each writes (mu, rstd) per (image, group) to `stats` (a null
 // pointer skips it), which the backward reads instead of reading x again.
 //
 // Backward (gnb_* kernels; the TPU package has none: its _bwd,
@@ -68,7 +100,7 @@
 //   dx = (gamma * r) * gh - r * c1 - (x - mu) * r^2 * c2,
 //   c1 = mean_g(gamma * gh), c2 = mean_g(gamma * gh * xhat)
 // Bound: memory bandwidth, as the forward; the least traffic is one read of
-// x and dy and one write of dx. Two designs, chosen per shape by
+// x and dy and one write of dx. Three designs, chosen per shape by
 // ops/groupnorm.py::_plan_backward:
 //
 // 1. Cluster design (gnb_cluster_kernel + gnb_batch_sums_kernel): x and dy
@@ -90,10 +122,20 @@
 //    between a CTA's loads and its stores, which a second CTA on the SM
 //    covers only in part (55-71 % of the bytes bound in f32, 46-66 % in
 //    bf16 at the main path's shapes; PERF.md).
-// 2. Four-kernel design, for slabs larger than 16 CTAs hold (stem1 and
-//    stem2 at 480x720 and 240x360). x and dy read twice, so at most 3/5 of
-//    the bytes bound; at the stems it streams at about 90 % of HBM
-//    bandwidth (PERF.md):
+// 2. Grid design (gnb_grid_kernel + gnb_batch_sums_kernel), the forward's
+//    skeleton with x and dy held together, for slabs larger than 16 CTAs
+//    hold that the card's shared memory holds whole (stem2: 11 MB of 64-byte
+//    rows a unit). Per pair the sums of gh and gh * xhat per channel, the
+//    unit's sums added over the ranks, c1 and c2 per group, and dx from
+//    shared memory; rank 0 writes the image's sums to a scratch [B, 2, C],
+//    which the second kernel adds in order into dgamma and dbeta.
+//    stem1's x + dy (44 MB an image at 64 bytes a pixel) do not fit: 32-byte
+//    blocks held whole, and 64-byte blocks streaming what 200 KB does not
+//    hold, were both measured slower there than the four-kernel design
+//    (PERF.md), which it keeps.
+// 3. Four-kernel design, for slabs larger than the grid design holds
+//    (stem1). x and dy read twice, so at most 3/5 of the bytes bound; at
+//    stem1 it streams at about 90 % of HBM bandwidth (PERF.md):
 //   (a) gnb_partials: per (image, chunk of H*W rows), per channel, fp32 sums
 //       of gh and gh * xhat into scratch [B, chunks, 2, C];
 //   (b) gnb_image_sums: per (image, channel), the chunks summed in order;
@@ -397,6 +439,7 @@ constexpr int kErrNoEncoder = -1;      // libcuda has no cuTensorMapEncodeTiled
 constexpr int kErrEncode = -2;         // cuTensorMapEncodeTiled refused a tensor map
 constexpr int kErrSmemPlan = -3;       // the layout needs more shared memory than planned
 constexpr int kErrNoCluster = -4;      // cudaOccupancyMaxActiveClusters gave 0
+constexpr int kErrNoResidency = -5;    // a cooperative grid larger than the card holds at once
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -711,11 +754,13 @@ EncodeTiledFn encoder() {
 }
 
 // 3D map over NHWC viewed as [B, HW, C] (innermost first: C, HW, B), box
-// [1, box_rows, cb]. L2 promotion to 256 B: a box row is only 32-64 B wide,
-// and the neighbouring channel blocks (other clusters, running at the same
-// time) read the rest of each 256 B.
+// [1, box_rows, cb]. L2 promotion to 256 B where the neighbouring channel
+// blocks (other clusters, running at the same time) read the rest of each
+// 256 B; else (`wide` false: the grid design, whose units of one image run
+// one after another) to 64 B, so a box row fetches no other block's bytes
+// (measured: PERF.md).
 int encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int HW, int C, int cb,
-               int box_rows) {
+               int box_rows, bool wide = true) {
   EncodeTiledFn enc = encoder();
   if (enc == nullptr) return kErrNoEncoder;
   const cuuint64_t es = bf16 ? 2 : 4;
@@ -726,7 +771,8 @@ int encode_map(CUtensorMap* map, const void* ptr, bool bf16, int B, int HW, int 
   const CUresult r =
       enc(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
           const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_SWIZZLE_NONE,
+          wide ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B : CU_TENSOR_MAP_L2_PROMOTION_L2_64B,
           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
 }
@@ -1258,6 +1304,834 @@ int launch_cluster_backward(const void* x, const void* dy, const float* gamma, c
   return cudaGetLastError();
 }
 
+// The forward's per-channel constants of K1-bwd at channel c of image b:
+// a = gamma * r is its product, so pre = fmaf(x - mu, a, beta) and the ReLU
+// mask have its bits.
+__device__ __forceinline__ void backward_constants(const float* __restrict__ gamma,
+                                                   const float* __restrict__ beta,
+                                                   const float* __restrict__ stats, int b, int G,
+                                                   int gs, int c, float& mu, float& r, float& a,
+                                                   float& be) {
+  const float* st = stats + ((size_t)b * G + c / gs) * 2;
+  mu = st[0];
+  r = st[1];
+  a = gamma[c] * r;
+  be = beta[c];
+}
+
+// 16 bytes of a row as loaded (4 f32 or 8 bf16), unpacked where they are used,
+// so a batch of loads holds 4 registers a row
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// Rows r0, r0 + step, ... (U of them, those below row1) of a thread's column.
+template <int U, typename T>
+__device__ __forceinline__ void load_batch(uint4 (&raw)[U], const T* p, int r0, int row1,
+                                           int step, int C) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (r0 + u * step < row1) raw[u] = load_raw(p + (size_t)(r0 + u * step) * C);
+}
+
+// The same rows of x and of dy, a row of each in turn.
+template <int U, typename T>
+__device__ __forceinline__ void load_batch2(uint4 (&rx)[U], uint4 (&rd)[U], const T* px,
+                                            const T* pd, int r0, int row1, int step, int C) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (r0 + u * step < row1) {
+      rx[u] = load_raw(px + (size_t)(r0 + u * step) * C);
+      rd[u] = load_raw(pd + (size_t)(r0 + u * step) * C);
+    }
+  }
+}
+
+__device__ __forceinline__ void unpack(const float*, uint4 r, float* out) {
+  out[0] = __uint_as_float(r.x);
+  out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z);
+  out[3] = __uint_as_float(r.w);
+}
+
+__device__ __forceinline__ void unpack(const __nv_bfloat16*, uint4 r, float* out) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Grid design (slabs larger than a cluster holds: the stems)
+// ---------------------------------------------------------------------------
+//
+// A unit is one (image, channel block) slab; its k CTAs ("ranks") hold
+// contiguous row ranges of it, as a cluster's CTAs do. Pair p = unit * k +
+// rank, and CTA c of the cooperative grid takes pairs c, c + gridDim.x, ...
+// in order. With k <= gridDim.x the k ranks of a unit sit in distinct CTAs,
+// and a CTA waits at pair p only on pairs of p's unit; each of those is
+// either at most one step ahead of its own CTA or blocked by a pair of an
+// earlier unit, so by induction over the units every wait ends (every CTA
+// is resident: the launch is cooperative).
+
+constexpr int kMaxGridBoxes = 32;  // mbarrier parities of a CTA's boxes in one word
+
+// held: the pair's first rows, which its boxes hold in shared memory (all
+// of them but where the slab outgrows the card: the rest, [held, nrows), is
+// streamed from device memory in the sums and again in the apply); live:
+// the boxes that hold rows.
+struct GridPair {
+  int unit, rank, b, c0, row0, nrows, held, live;
+};
+
+__device__ __forceinline__ GridPair grid_pair(int p, int k, int nblk, int cb, int HW,
+                                              int rows_per_cta, int box_rows, int nbox) {
+  GridPair q;
+  q.unit = p / k;
+  q.rank = p % k;
+  q.b = q.unit / nblk;
+  q.c0 = (q.unit % nblk) * cb;
+  q.row0 = q.rank * rows_per_cta;
+  q.nrows = min(rows_per_cta, HW - q.row0);
+  q.held = min(q.nrows, nbox * box_rows);
+  q.live = (q.held + box_rows - 1) / box_rows;
+  return q;
+}
+
+constexpr int kStreamBatch = 8;  // streamed rows of x a thread loads before it uses any
+constexpr int kStreamBatch2 = 4;  // of x and of dy
+
+// The forward's streamed rows of pair q, from device memory: summed around
+// `piv` into acc.
+template <typename T, int V>
+__device__ __forceinline__ void stream_pivot_sums(const T* x, const GridPair& q, int HW, int C,
+                                                  int cv, int slot, int rslots,
+                                                  const float (&piv)[V], float (&acc)[2][V]) {
+  const T* base = x + ((size_t)q.b * HW + q.row0) * C + q.c0 + cv * V;
+  for (int r0 = q.held + slot; r0 < q.nrows; r0 += kStreamBatch * rslots) {
+    uint4 raw[kStreamBatch];
+    load_batch(raw, base, r0, q.nrows, rslots, C);
+#pragma unroll
+    for (int u = 0; u < kStreamBatch; ++u) {
+      if (r0 + u * rslots >= q.nrows) break;
+      float v[V];
+      unpack(x, raw[u], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = v[j] - piv[j];
+        acc[0][j] += d;
+        acc[1][j] = fmaf(d, d, acc[1][j]);
+      }
+    }
+  }
+}
+
+// The forward's streamed rows of pair q again (the L2 may still hold them):
+// y = (x - mu) * a + be (+ReLU).
+template <typename T, int V>
+__device__ __forceinline__ void stream_apply(const T* x, T* y, const GridPair& q, int HW, int C,
+                                             int cv, int slot, int rslots, const float (&mu)[V],
+                                             const float (&a)[V], const float (&be)[V],
+                                             int relu) {
+  const size_t off = ((size_t)q.b * HW + q.row0) * C + q.c0 + cv * V;
+  for (int r0 = q.held + slot; r0 < q.nrows; r0 += kStreamBatch * rslots) {
+    uint4 raw[kStreamBatch];
+    load_batch(raw, x + off, r0, q.nrows, rslots, C);
+#pragma unroll
+    for (int u = 0; u < kStreamBatch; ++u) {
+      if (r0 + u * rslots >= q.nrows) break;
+      float v[V];
+      unpack(x, raw[u], v);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float o = fmaf(v[j] - mu[j], a[j], be[j]);
+        v[j] = relu ? fmaxf(o, 0.f) : o;
+      }
+      store_vec(y + off + (size_t)(r0 + u * rslots) * C, v);
+    }
+  }
+}
+
+// The backward's streamed rows of pair q: the sums of gh and gh * xhat.
+template <typename T, int V>
+__device__ __forceinline__ void stream_grad_sums(const T* x, const T* dy, const GridPair& q,
+                                                 int HW, int C, int cv, int slot, int rslots,
+                                                 const float (&mu)[V], const float (&r)[V],
+                                                 const float (&a)[V], const float (&be)[V],
+                                                 int relu, float (&acc)[2][V]) {
+  const size_t off = ((size_t)q.b * HW + q.row0) * C + q.c0 + cv * V;
+  for (int r0 = q.held + slot; r0 < q.nrows; r0 += kStreamBatch2 * rslots) {
+    uint4 rx[kStreamBatch2], rd[kStreamBatch2];
+    load_batch2(rx, rd, x + off, dy + off, r0, q.nrows, rslots, C);
+#pragma unroll
+    for (int u = 0; u < kStreamBatch2; ++u) {
+      if (r0 + u * rslots >= q.nrows) break;
+      float v[V], g[V];
+      unpack(x, rx[u], v);
+      unpack(x, rd[u], g);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = v[j] - mu[j];
+        const float gh = (relu && !(fmaf(d, a[j], be[j]) > 0.f)) ? 0.f : g[j];
+        acc[0][j] += gh;
+        acc[1][j] = fmaf(gh, d * r[j], acc[1][j]);
+      }
+    }
+  }
+}
+
+// The backward's streamed rows of pair q again: dx.
+template <typename T, int V>
+__device__ __forceinline__ void stream_grad_apply(const T* x, const T* dy, T* dx,
+                                                  const GridPair& q, int HW, int C, int cv,
+                                                  int slot, int rslots, const float (&mu)[V],
+                                                  const float (&a)[V], const float (&be)[V],
+                                                  const float (&rc1)[V], const float (&r2c2)[V],
+                                                  int relu) {
+  const size_t off = ((size_t)q.b * HW + q.row0) * C + q.c0 + cv * V;
+  for (int r0 = q.held + slot; r0 < q.nrows; r0 += kStreamBatch2 * rslots) {
+    uint4 rx[kStreamBatch2], rd[kStreamBatch2];
+    load_batch2(rx, rd, x + off, dy + off, r0, q.nrows, rslots, C);
+#pragma unroll
+    for (int u = 0; u < kStreamBatch2; ++u) {
+      if (r0 + u * rslots >= q.nrows) break;
+      float v[V], g[V];
+      unpack(x, rx[u], v);
+      unpack(x, rd[u], g);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float d = v[j] - mu[j];
+        const float gh = (relu && !(fmaf(d, a[j], be[j]) > 0.f)) ? 0.f : g[j];
+        v[j] = fmaf(a[j], gh, -fmaf(d, r2c2[j], rc1[j]));
+      }
+      store_vec(dx + off + (size_t)(r0 + u * rslots) * C, v);
+    }
+  }
+}
+
+// Thread 0: the TMA loads of boxes [from, to) of pair q, x's into xs and,
+// where dmap is given, dy's into ds, one mbarrier per box (pair).
+template <typename T>
+__device__ __forceinline__ void grid_issue(T* xs, const CUtensorMap* xmap, T* ds,
+                                           const CUtensorMap* dmap, uint64_t* mbar,
+                                           const GridPair& q, int from, int to, int box_rows,
+                                           int box_elems) {
+  const uint32_t bytes = static_cast<uint32_t>(box_elems * sizeof(T)) * (dmap ? 2u : 1u);
+  for (int j = from; j < to; ++j) {
+    // rows past HW are zero-filled and still counted in the box's bytes
+    mbar_expect_tx(&mbar[j], bytes);
+    const int row = q.row0 + j * box_rows;
+    tma_load_3d(xs + (size_t)j * box_elems, xmap, q.c0, row, q.b, &mbar[j]);
+    if (dmap != nullptr) tma_load_3d(ds + (size_t)j * box_elems, dmap, q.c0, row, q.b, &mbar[j]);
+  }
+}
+
+// Before the CTA's first pair: its mbarriers, its first pair's loads, and
+// every unit's arrival counter set to 0 (by CTA 0), visible to the whole
+// grid after one grid barrier: no host round trip, no memset.
+template <typename T>
+__device__ __forceinline__ void grid_start(T* xs, const CUtensorMap* xmap, T* ds,
+                                           const CUtensorMap* dmap, uint64_t* mbar,
+                                           const GridPair& first, int nbox, int box_rows,
+                                           int box_elems, unsigned* arrive, int units) {
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < nbox; ++j) mbar_init(&mbar[j], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    grid_issue(xs, xmap, ds, dmap, mbar, first, 0, first.live, box_rows, box_elems);
+  }
+  if (blockIdx.x == 0)
+    for (int i = threadIdx.x; i < units; i += blockDim.x) arrive[i] = 0u;
+  cg::this_grid().sync();
+}
+
+// Thread 0, once every thread is done reading box j of the current pair:
+// the next pair's load into it (generic reads, then an async-proxy write).
+template <typename T>
+__device__ __forceinline__ void grid_refill(T* xs, const CUtensorMap* xmap, T* ds,
+                                            const CUtensorMap* dmap, uint64_t* mbar,
+                                            const GridPair& nxt, int from, int to, int box_rows,
+                                            int box_elems) {
+  if (threadIdx.x == 0 && from < to) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    grid_issue(xs, xmap, ds, dmap, mbar, nxt, from, to, box_rows, box_elems);
+  }
+}
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Every thread, after storing its part of this CTA's partials: marks the
+// CTA's arrival on its unit's counter (integer atomics only) and returns
+// once all k CTAs of the unit have arrived, their partials visible.
+__device__ __forceinline__ void grid_unit_barrier(unsigned* counter, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(counter, 1u);
+    while (ld_acquire_gpu(counter) < static_cast<unsigned>(k)) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+constexpr int kMergeBatch = 8;  // rank partials a thread loads before it adds any
+
+// The unit's per-channel sums out[i] = sum over ranks r of part[r * n + i],
+// i < n (n = 2 * cb, a multiple of 4): thread t takes 16-byte column t % nq
+// (nq = n / 4) of the ranks t / nq, t / nq + S, ... (S = blockDim.x / nq
+// slices), kMergeBatch loads in flight at once; `stage` (S * n <= 4 *
+// blockDim.x floats) takes the slices' sums, which thread i adds in slice
+// order. A fixed order: every CTA of the unit gets the same bits. Ends with
+// __syncthreads.
+__device__ __forceinline__ void unit_sums(const float* part, int k, int n, float* stage,
+                                          float* out) {
+  const int nq = n / 4, S = blockDim.x / nq;
+  const int q = threadIdx.x % nq, sl = threadIdx.x / nq;
+  if (sl < S) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r0 = sl; r0 < k; r0 += kMergeBatch * S) {
+      float4 v[kMergeBatch];
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j)
+        if (r0 + j * S < k)
+          v[j] = __ldcg(reinterpret_cast<const float4*>(part + (size_t)(r0 + j * S) * n) + q);
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j) {
+        if (r0 + j * S < k) {
+          acc.x += v[j].x;
+          acc.y += v[j].y;
+          acc.z += v[j].z;
+          acc.w += v[j].w;
+        }
+      }
+    }
+    reinterpret_cast<float4*>(stage + sl * n)[q] = acc;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float t = 0.f;
+    for (int j = 0; j < S; ++j) t += stage[j * n + i];
+    out[i] = t;
+  }
+  __syncthreads();
+}
+
+// Boxes a CTA's apply stays ahead of the next pair's sums: box j of the next
+// pair is summed once box j + kSumLag of this one is stored (its load had
+// that long to land).
+constexpr int kSumLag = 3;
+
+// Rows of box bx of pair q, summed around `piv` into acc (x - pivot, and its
+// square), each thread its column over the box's row slots.
+template <typename T, int V>
+__device__ __forceinline__ void pivot_sums(const T* slab, const GridPair& q, int bx, int box_rows,
+                                           int box_elems, int cb, int cv, int slot, int rslots,
+                                           const float (&piv)[V], float (&acc)[2][V]) {
+  const int r_end = min(box_rows, q.held - bx * box_rows);
+  const T* base = slab + (size_t)bx * box_elems + cv * V;
+#pragma unroll 4
+  for (int r = slot; r < r_end; r += rslots) {
+    float v[V];
+    load_vec(base + r * cb, v);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = v[j] - piv[j];
+      acc[0][j] += d;
+      acc[1][j] = fmaf(d, d, acc[1][j]);
+    }
+  }
+}
+
+// The backward's rows of box bx of pair q: the sums of gh and gh * xhat
+// into acc, with the pair's per-channel constants.
+template <typename T, int V>
+__device__ __forceinline__ void grad_box_sums(const T* xs, const T* ds, const GridPair& q, int bx,
+                                              int box_rows, int box_elems, int cb, int cv,
+                                              int slot, int rslots, const float (&mu)[V],
+                                              const float (&r)[V], const float (&a)[V],
+                                              const float (&be)[V], int relu,
+                                              float (&acc)[2][V]) {
+  const int r_end = min(box_rows, q.held - bx * box_rows);
+  const size_t at = (size_t)bx * box_elems + cv * V;
+#pragma unroll 4
+  for (int row = slot; row < r_end; row += rslots) {
+    float v[V], g[V];
+    load_vec(xs + at + row * cb, v);
+    load_vec(ds + at + row * cb, g);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float d = v[j] - mu[j];
+      const float gh = (relu && !(fmaf(d, a[j], be[j]) > 0.f)) ? 0.f : g[j];
+      acc[0][j] += gh;
+      acc[1][j] = fmaf(gh, d * r[j], acc[1][j]);
+    }
+  }
+}
+
+// The forward's per-channel constants of K1-bwd for the V channels of a
+// thread's column in pair q.
+template <int V>
+__device__ __forceinline__ void pair_constants(const float* __restrict__ gamma,
+                                               const float* __restrict__ beta,
+                                               const float* __restrict__ stats, const GridPair& q,
+                                               int G, int gs, int cv, float (&mu)[V],
+                                               float (&r)[V], float (&a)[V], float (&be)[V]) {
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    backward_constants(gamma, beta, stats, q.b, G, gs, q.c0 + cv * V + j, mu[j], r[j], a[j],
+                       be[j]);
+}
+
+// part: [units, k, 2, cb] of each rank's sums of x - pivot and (x -
+// pivot)^2 per channel, the pivot the unit's first row (read by every rank
+// alike); arrive: one counter a unit. Each pair: those sums as each box
+// lands (one pass, no division; for every pair but a CTA's first, most of
+// its boxes are summed during the previous pair's apply), the unit's sums
+// added over the ranks (unit_sums), then per channel the mean and the
+// centred M2 and per group the channels merged around the group mean, as
+// the cross-shard statistics take them; the apply from shared memory, each
+// box refilled with the next pair's rows once it is stored.
+// One CTA an SM (the planner's choice: two measured slower), so the
+// compiler may take up to 255 registers a thread.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gn_grid_kernel(const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
+                   T* __restrict__ y, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, float* __restrict__ stats, float* part,
+                   unsigned* arrive, int HW, int C, int gs, int cb, int k, int units,
+                   int rows_per_cta, int box_rows, int nbox, float eps, int relu) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int vpr = cb / V;                 // 16-byte vectors per row
+  const int rslots = blockDim.x / vpr;    // rows processed side by side
+  const int cv = tid % vpr;               // this thread's column of vectors
+  const int slot = tid / vpr;
+  const int ng = cb / gs, G = C / gs, nblk = C / cb;
+  const int npairs = units * k, box_elems = box_rows * cb;
+
+  // shared memory: [slab | mbarriers | red | stage | csum | pv | mu | rstd]
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (128u - (smem_addr(smem_raw) & 127u)) & 127u;
+  T* slab = reinterpret_cast<T*>(smem_raw + pad);
+  uint64_t* mbar = reinterpret_cast<uint64_t*>(slab + (size_t)nbox * box_elems);
+  // 16-byte aligned after the mbarriers: unit_sums stores 16 bytes a thread
+  float* red = reinterpret_cast<float*>(mbar + ((nbox + 1) & ~1));  // 2 * red_slots * cb
+  float* stage = red + 2 * red_slots(vpr) * cb;  // 4 * blockDim.x: unit_sums' slices
+  float* csum = stage + 4 * blockDim.x;   // 2 * cb: the unit's sums per channel
+  float* pv = csum + 2 * cb;              // cb: the pivots
+  float* g_mu = pv + cb;                  // ng
+  float* g_rstd = g_mu + ng;              // ng
+
+  GridPair cur = grid_pair(blockIdx.x, k, nblk, cb, HW, rows_per_cta, box_rows, nbox);
+  grid_start<T>(slab, &xmap, nullptr, nullptr, mbar, cur, nbox, box_rows, box_elems, arrive,
+                units);
+  const float n_rows = static_cast<float>(HW);
+  uint32_t phase = 0;  // bit j: the parity box j's next completion has
+  // the current pair's pivot, its sums so far, and its boxes summed so far
+  float piv[V], acc[2][V];
+  int summed = 0;
+  load_vec(x + (size_t)cur.b * HW * C + cur.c0 + cv * V, piv);
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
+  for (int p = blockIdx.x; p < npairs; p += gridDim.x) {
+    GridPair nxt{};
+    if (p + static_cast<int>(gridDim.x) < npairs)
+      nxt = grid_pair(p + gridDim.x, k, nblk, cb, HW, rows_per_cta, box_rows, nbox);
+
+    // the streamed rows, then the boxes not yet summed, each as it lands
+    stream_pivot_sums<T, V>(x, cur, HW, C, cv, slot, rslots, piv, acc);
+    for (int bx = summed; bx < cur.live; ++bx) {
+      mbar_wait(&mbar[bx], (phase >> bx) & 1u);
+      phase ^= 1u << bx;
+      pivot_sums<T, V>(slab, cur, bx, box_rows, box_elems, cb, cv, slot, rslots, piv, acc);
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      if (slot == 0) pv[cv * V + j] = piv[j];
+    block_channel_sums<V, 2>(acc, red, part + (size_t)p * 2 * cb, vpr, cb);
+    grid_unit_barrier(&arrive[cur.unit], k);
+    unit_sums(part + (size_t)cur.unit * k * 2 * cb, k, 2 * cb, stage, csum);
+
+    // per channel the mean and the centred M2 (into csum), then per group
+    // the channels merged around the group mean; var clamped at 0
+    for (int c = tid; c < cb; c += blockDim.x) {
+      const float s1 = csum[c], q = s1 / n_rows;
+      csum[c] = pv[c] + q;
+      csum[cb + c] = fmaxf(csum[cb + c] - s1 * q, 0.f);
+    }
+    __syncthreads();
+    if (tid < ng) {
+      float m = 0.f;
+      for (int c = tid * gs; c < (tid + 1) * gs; ++c) m += csum[c];
+      m /= static_cast<float>(gs);
+      float q = 0.f;
+      for (int c = tid * gs; c < (tid + 1) * gs; ++c) {
+        const float d = csum[c] - m;
+        q += fmaf(n_rows * d, d, csum[cb + c]);
+      }
+      const float rstd = rsqrtf(fmaxf(q / (n_rows * static_cast<float>(gs)), 0.f) + eps);
+      g_mu[tid] = m;
+      g_rstd[tid] = rstd;
+      if (stats != nullptr && cur.rank == 0) {  // every rank holds the same bits
+        const size_t at = ((size_t)cur.b * G + cur.c0 / gs + tid) * 2;
+        stats[at] = m;
+        stats[at + 1] = rstd;
+      }
+    }
+    __syncthreads();
+
+    // apply box by box, 16 bytes a thread straight from registers; each
+    // box, once stored, takes the next pair's rows
+    float mu[V], a[V], be[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int c = cv * V + j;
+      mu[j] = g_mu[c / gs];
+      a[j] = gamma[cur.c0 + c] * g_rstd[c / gs];
+      be[j] = beta[cur.c0 + c];
+    }
+    stream_apply<T, V>(x, y, cur, HW, C, cv, slot, rslots, mu, a, be, relu);
+    T* yb = y + ((size_t)cur.b * HW + cur.row0) * C + cur.c0 + cv * V;
+    summed = 0;
+    if (nxt.live > 0) load_vec(x + (size_t)nxt.b * HW * C + nxt.c0 + cv * V, piv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
+    for (int bx = 0; bx < cur.live; ++bx) {
+      const int r_end = min(box_rows, cur.held - bx * box_rows);
+      const T* src = slab + (size_t)bx * box_elems + cv * V;
+      T* dst = yb + (size_t)bx * box_rows * C;
+#pragma unroll 4
+      for (int r = slot; r < r_end; r += rslots) {
+        float v[V];
+        load_vec(src + r * cb, v);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float o = fmaf(v[j] - mu[j], a[j], be[j]);
+          v[j] = relu ? fmaxf(o, 0.f) : o;
+        }
+        store_vec(dst + (size_t)r * C, v);
+      }
+      if (bx < nxt.live) {
+        __syncthreads();
+        grid_refill<T>(slab, &xmap, nullptr, nullptr, mbar, nxt, bx, bx + 1, box_rows, box_elems);
+      }
+      // the next pair's box kSumLag behind, refilled that many boxes ago
+      if (bx >= kSumLag && summed < nxt.live) {
+        mbar_wait(&mbar[summed], (phase >> summed) & 1u);
+        phase ^= 1u << summed;
+        pivot_sums<T, V>(slab, nxt, summed, box_rows, box_elems, cb, cv, slot, rslots, piv, acc);
+        ++summed;
+      }
+    }
+    grid_refill<T>(slab, &xmap, nullptr, nullptr, mbar, nxt, cur.live, nxt.live, box_rows,
+                   box_elems);
+    cur = nxt;
+  }
+}
+
+// part: [units, k, 2, cb] of each rank's sums of gh and gh * xhat per
+// channel; arrive: one counter a unit; sums: [B, 2, C] of each image's
+// sums, written by each unit's rank 0 (gnb_batch_sums_kernel adds them).
+// Each pair: the sums over this CTA's rows as its boxes land (most of them,
+// as the forward's, during the previous pair's apply), the unit's k
+// partials added over the ranks (unit_sums), the group coefficients, and dx
+// from shared memory, each box refilled with the next pair's rows once it
+// is stored.
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    gnb_grid_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap dymap, const T* __restrict__ x,
+                    const T* __restrict__ dy, T* __restrict__ dx,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    const float* __restrict__ stats, float* part, unsigned* arrive,
+                    float* __restrict__ sums, int HW, int C, int gs, int cb, int k, int units,
+                    int rows_per_cta, int box_rows, int nbox, int relu) {
+  constexpr int V = Vec<T>::N;
+  const int tid = threadIdx.x;
+  const int vpr = cb / V, rslots = blockDim.x / vpr, cv = tid % vpr, slot = tid / vpr;
+  const int ng = cb / gs, G = C / gs, nblk = C / cb;
+  const int npairs = units * k, box_elems = box_rows * cb;
+
+  // shared memory: [x slab | dy slab | mbarriers | red | stage | csum | coef]
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (128u - (smem_addr(smem_raw) & 127u)) & 127u;
+  const size_t slab_bytes = (size_t)nbox * box_elems * sizeof(T);
+  T* xs = reinterpret_cast<T*>(smem_raw + pad);
+  T* ds = reinterpret_cast<T*>(smem_raw + pad + round_up(slab_bytes, 128));
+  uint64_t* mbar =
+      reinterpret_cast<uint64_t*>(smem_raw + pad + round_up(slab_bytes, 128) +
+                                  round_up(slab_bytes, 16));
+  // 16-byte aligned after the mbarriers: unit_sums stores 16 bytes a thread
+  float* red = reinterpret_cast<float*>(mbar + ((nbox + 1) & ~1));  // 2 * red_slots * cb
+  float* stage = red + 2 * red_slots(vpr) * cb;  // 4 * blockDim.x: unit_sums' slices
+  float* csum = stage + 4 * blockDim.x;   // 2 * cb: the unit's sums per channel
+  float* coef = csum + 2 * cb;            // 2 * ng: r * c1 and r^2 * c2 per group
+
+  GridPair cur = grid_pair(blockIdx.x, k, nblk, cb, HW, rows_per_cta, box_rows, nbox);
+  grid_start<T>(xs, &xmap, ds, &dymap, mbar, cur, nbox, box_rows, box_elems, arrive, units);
+  const float n_all = static_cast<float>(HW) * static_cast<float>(gs);
+  uint32_t phase = 0;
+  // the forward's per-channel constants of the current pair (a = gamma * r
+  // is its product, so pre = fmaf(x - mu, a, beta) and the ReLU mask have
+  // its bits), its sums so far, and its boxes summed so far
+  float mu[V], r[V], a[V], be[V], acc[2][V];
+  int summed = 0;
+  pair_constants<V>(gamma, beta, stats, cur, G, gs, cv, mu, r, a, be);
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
+  for (int p = blockIdx.x; p < npairs; p += gridDim.x) {
+    GridPair nxt{};
+    if (p + static_cast<int>(gridDim.x) < npairs)
+      nxt = grid_pair(p + gridDim.x, k, nblk, cb, HW, rows_per_cta, box_rows, nbox);
+
+    // sums over this CTA's rows: the streamed ones, then the boxes not yet
+    // summed, each as it lands
+    stream_grad_sums<T, V>(x, dy, cur, HW, C, cv, slot, rslots, mu, r, a, be, relu, acc);
+    for (int bx = summed; bx < cur.live; ++bx) {
+      mbar_wait(&mbar[bx], (phase >> bx) & 1u);
+      phase ^= 1u << bx;
+      grad_box_sums<T, V>(xs, ds, cur, bx, box_rows, box_elems, cb, cv, slot, rslots, mu, r, a,
+                          be, relu, acc);
+    }
+    block_channel_sums<V, 2>(acc, red, part + (size_t)p * 2 * cb, vpr, cb);
+    grid_unit_barrier(&arrive[cur.unit], k);
+
+    // the unit's sums per channel (the same bits in every CTA of the unit);
+    // rank 0 hands them to the batch sums
+    unit_sums(part + (size_t)cur.unit * k * 2 * cb, k, 2 * cb, stage, csum);
+    if (cur.rank == 0)
+      for (int i = tid; i < 2 * cb; i += blockDim.x)
+        sums[(size_t)cur.b * 2 * C + (i / cb) * C + cur.c0 + i % cb] = csum[i];
+    // the group means c1 = mean(gamma * gh), c2 = mean(gamma * gh * xhat)
+    if (tid < ng) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int c = tid * gs; c < (tid + 1) * gs; ++c) {
+        t1 = fmaf(gamma[cur.c0 + c], csum[c], t1);
+        t2 = fmaf(gamma[cur.c0 + c], csum[cb + c], t2);
+      }
+      const float rg = stats[((size_t)cur.b * G + cur.c0 / gs + tid) * 2 + 1];
+      coef[tid] = rg * (t1 / n_all);
+      coef[ng + tid] = rg * rg * (t2 / n_all);
+    }
+    __syncthreads();
+
+    // dx = (gamma * r) * gh - r * c1 - (x - mu) * r^2 * c2 box by box from
+    // shared memory; each box, once stored, takes the next pair's rows
+    float rc1[V], r2c2[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const int g = (cv * V + j) / gs;
+      rc1[j] = coef[g];
+      r2c2[j] = coef[ng + g];
+    }
+    stream_grad_apply<T, V>(x, dy, dx, cur, HW, C, cv, slot, rslots, mu, a, be, rc1, r2c2, relu);
+    T* out = dx + ((size_t)cur.b * HW + cur.row0) * C + cur.c0 + cv * V;
+    float nmu[V], nr[V], na[V], nbe[V];
+    if (nxt.live > 0) pair_constants<V>(gamma, beta, stats, nxt, G, gs, cv, nmu, nr, na, nbe);
+    summed = 0;
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc[0][j] = acc[1][j] = 0.f;
+    for (int bx = 0; bx < cur.live; ++bx) {
+      const int r_end = min(box_rows, cur.held - bx * box_rows);
+      const size_t at = (size_t)bx * box_elems + cv * V;
+      T* dst = out + (size_t)bx * box_rows * C;
+#pragma unroll 4
+      for (int row = slot; row < r_end; row += rslots) {
+        float v[V], g[V];
+        load_vec(xs + at + row * cb, v);
+        load_vec(ds + at + row * cb, g);
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const float d = v[j] - mu[j];
+          const float gh = (relu && !(fmaf(d, a[j], be[j]) > 0.f)) ? 0.f : g[j];
+          v[j] = fmaf(a[j], gh, -fmaf(d, r2c2[j], rc1[j]));
+        }
+        store_vec(dst + (size_t)row * C, v);
+      }
+      if (bx < nxt.live) {
+        __syncthreads();
+        grid_refill<T>(xs, &xmap, ds, &dymap, mbar, nxt, bx, bx + 1, box_rows, box_elems);
+      }
+      // the next pair's box kSumLag behind, refilled that many boxes ago
+      if (bx >= kSumLag && summed < nxt.live) {
+        mbar_wait(&mbar[summed], (phase >> summed) & 1u);
+        phase ^= 1u << summed;
+        grad_box_sums<T, V>(xs, ds, nxt, summed, box_rows, box_elems, cb, cv, slot, rslots, nmu,
+                            nr, na, nbe, relu, acc);
+        ++summed;
+      }
+    }
+    grid_refill<T>(xs, &xmap, ds, &dymap, mbar, nxt, cur.live, nxt.live, box_rows, box_elems);
+    cur = nxt;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      mu[j] = nmu[j];
+      r[j] = nr[j];
+      a[j] = na[j];
+      be[j] = nbe[j];
+    }
+  }
+}
+
+// The grid kernels' layouts in bytes (ops/groupnorm.py::_grid_smem computes
+// them too): the cluster designs' slabs, mbarriers (an even count, so what
+// follows is 16-byte aligned) and reduction scratch, then unit_sums' stage, the unit's sums per channel, and the pivots,
+// means and rstd (forward) or the coefficients (backward).
+size_t grid_smem_bytes(int itemsize, int V, int cb, int gs, int box_rows, int nbox, int threads,
+                       bool backward) {
+  const int ng = cb / gs, vpr = cb / V;
+  const int slots = (32 % vpr) == 0 ? threads / 32 : threads / vpr;
+  const size_t slab = (size_t)nbox * box_rows * cb * itemsize;
+  const size_t slabs = backward ? round_up(slab, 128) + round_up(slab, 16) : round_up(slab, 16);
+  const size_t tail = (backward ? 2 : 3) * (size_t)cb + 2 * (size_t)ng;
+  return 128 + slabs + 8 * (size_t)((nbox + 1) & ~1) +
+         4 * (2 * (size_t)slots * cb + 4 * (size_t)threads + tail);
+}
+
+// A cooperative launch: `grid` CTAs along x, every one resident at once.
+struct GridLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  GridLaunch(int grid, int threads, int smem, cudaStream_t stream) : cfg{}, attr{} {
+    cfg.gridDim = dim3(grid, 1, 1);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  GridLaunch(const GridLaunch&) = delete;
+};
+
+// Before a launch of `kernel` with `threads` and `smem` on this device: its
+// shared-memory limit raised to 227 KB (once), and the CTAs the card holds
+// at once (its occupancy times the SMs) at least `grid`. Cached per
+// configuration, under a mutex as ready_cluster's table.
+int ready_grid(const void* kernel, int threads, int smem, int grid) {
+  struct Resident {
+    const void* kernel;
+    int dev, threads, smem, ctas;
+  };
+  static Resident checked[kMaxChecked];
+  static int n_checked = 0;
+  static std::mutex table_mutex;
+  const std::lock_guard<std::mutex> lock(table_mutex);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < n_checked; ++i)
+    if (checked[i].kernel == kernel && checked[i].dev == dev && checked[i].threads == threads &&
+        checked[i].smem == smem)
+      return grid <= checked[i].ctas ? 0 : kErrNoResidency;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynSmem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (n_checked < kMaxChecked) checked[n_checked++] = Resident{kernel, dev, threads, smem, per_sm * sms};
+  return grid <= per_sm * sms ? 0 : kErrNoResidency;
+}
+
+// The plan's geometry as the grid kernels need it: whole groups in a channel
+// block that TMA boxes (16-byte multiples, at most 256 elements), whole rows
+// of threads (whole warps where a row's vectors divide a warp), k ranks that
+// cover H*W with rows in each, at most kMaxGridBoxes boxes (holding at most
+// a rank's rows; the rest are streamed), a grid of at
+// least k CTAs (so a unit's ranks sit in distinct CTAs) and at most the
+// pairs, and the layout within the planned shared memory.
+bool grid_plan_ok(int itemsize, int V, int C, int gs, int HW, int cb, int k, int rows_per_cta,
+                  int box_rows, int nbox, int threads, int grid, int units, size_t need,
+                  int smem) {
+  if (cb <= 0 || C % cb != 0 || cb % gs != 0 || cb % V != 0 || cb > 256 ||
+      (cb * itemsize) % 16 != 0 || (C * itemsize) % 16 != 0)
+    return false;
+  const int vpr = cb / V;
+  if (threads > kClusterThreads || threads < vpr || threads % vpr != 0 ||
+      (32 % vpr == 0 && threads % 32 != 0))
+    return false;
+  if (k < 1 || rows_per_cta < 1 || (size_t)k * rows_per_cta < (size_t)HW ||
+      (size_t)(k - 1) * rows_per_cta >= (size_t)HW)
+    return false;
+  if (nbox < 1 || nbox > kMaxGridBoxes || box_rows > 256 || nbox * box_rows > rows_per_cta)
+    return false;
+  if (grid < k || (size_t)grid > (size_t)units * k) return false;
+  if ((2 * cb) % 4 != 0 || 2 * cb / 4 > threads) return false;  // unit_sums' 16-byte columns
+  return need <= (size_t)smem && smem <= kMaxDynSmem;
+}
+
+template <typename T>
+int launch_grid(const void* x, void* y, const float* gamma, const float* beta, float* stats,
+                float* scratch, int B, int HW, int C, int G, int cb, int k, int rows_per_cta,
+                int box_rows, int nbox, int threads, int smem, int grid, float eps, int relu,
+                cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int gs = C / G, units = B * (C / cb);
+  if (!grid_plan_ok(sizeof(T), V, C, gs, HW, cb, k, rows_per_cta, box_rows, nbox, threads, grid,
+                    units, grid_smem_bytes(sizeof(T), V, cb, gs, box_rows, nbox, threads, false),
+                    smem))
+    return kErrSmemPlan;
+  int e = ready_grid(reinterpret_cast<const void*>(gn_grid_kernel<T>), threads, smem, grid);
+  if (e != 0) return e;
+  CUtensorMap xmap;
+  e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows, false);
+  if (e != 0) return e;
+  float* part = scratch;  // [units, k, 2, cb], then one counter a unit
+  unsigned* arrive = reinterpret_cast<unsigned*>(part + (size_t)units * k * 2 * cb);
+  const GridLaunch launch(grid, threads, smem, stream);
+  const cudaError_t err = cudaLaunchKernelEx(&launch.cfg, gn_grid_kernel<T>, xmap,
+                                             static_cast<const T*>(x), static_cast<T*>(y), gamma,
+                                             beta, stats, part, arrive, HW, C, gs, cb, k, units,
+                                             rows_per_cta, box_rows, nbox, eps, relu);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_grid_backward(const void* x, const void* dy, const float* gamma, const float* beta,
+                         const float* stats, void* dx, float* dgamma, float* dbeta,
+                         float* scratch, int B, int HW, int C, int G, int cb, int k,
+                         int rows_per_cta, int box_rows, int nbox, int threads, int smem,
+                         int grid, int relu, cudaStream_t stream) {
+  constexpr int V = Vec<T>::N;
+  const int gs = C / G, units = B * (C / cb);
+  if (!grid_plan_ok(sizeof(T), V, C, gs, HW, cb, k, rows_per_cta, box_rows, nbox, threads, grid,
+                    units, grid_smem_bytes(sizeof(T), V, cb, gs, box_rows, nbox, threads, true),
+                    smem))
+    return kErrSmemPlan;
+  int e = ready_grid(reinterpret_cast<const void*>(gnb_grid_kernel<T>), threads, smem, grid);
+  if (e != 0) return e;
+  CUtensorMap xmap, dymap;
+  e = encode_map(&xmap, x, sizeof(T) == 2, B, HW, C, cb, box_rows, false);
+  if (e != 0) return e;
+  e = encode_map(&dymap, dy, sizeof(T) == 2, B, HW, C, cb, box_rows, false);
+  if (e != 0) return e;
+  float* sums = scratch;                  // [B, 2, C]
+  float* part = sums + (size_t)B * 2 * C;  // [units, k, 2, cb], then one counter a unit
+  unsigned* arrive = reinterpret_cast<unsigned*>(part + (size_t)units * k * 2 * cb);
+  const GridLaunch launch(grid, threads, smem, stream);
+  cudaError_t err = cudaLaunchKernelEx(&launch.cfg, gnb_grid_kernel<T>, xmap, dymap,
+                                       static_cast<const T*>(x), static_cast<const T*>(dy),
+                                       static_cast<T*>(dx), gamma, beta, stats, part, arrive,
+                                       sums, HW, C, gs, cb, k, units, rows_per_cta, box_rows,
+                                       nbox, relu);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gnb_batch_sums_kernel<<<(C + 255) / 256, 256, 0, stream>>>(sums, dgamma, dbeta, B, C);
+  return cudaGetLastError();
+}
 
 // ---------------------------------------------------------------------------
 // Cross-shard design (the mesh's "spatial" axis, parallel/spatial.py)
@@ -1328,52 +2202,6 @@ constexpr int kShardApplyMaxThreads = 256;  // an apply CTA's
 constexpr int kSumsBatch = 4;      // of x and of dy
 constexpr int kApplyBatch = 8;
 constexpr int kBwdApplyBatch = 4;  // of x and of dy
-
-// 16 bytes of a row as loaded (4 f32 or 8 bf16), unpacked where they are used,
-// so a batch of loads holds 4 registers a row
-template <typename T>
-__device__ __forceinline__ uint4 load_raw(const T* p) {
-  return __ldg(reinterpret_cast<const uint4*>(p));
-}
-
-// Rows r0, r0 + step, ... (U of them, those below row1) of a thread's column.
-template <int U, typename T>
-__device__ __forceinline__ void load_batch(uint4 (&raw)[U], const T* p, int r0, int row1,
-                                           int step, int C) {
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-    if (r0 + u * step < row1) raw[u] = load_raw(p + (size_t)(r0 + u * step) * C);
-}
-
-// The same rows of x and of dy, a row of each in turn.
-template <int U, typename T>
-__device__ __forceinline__ void load_batch2(uint4 (&rx)[U], uint4 (&rd)[U], const T* px,
-                                            const T* pd, int r0, int row1, int step, int C) {
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    if (r0 + u * step < row1) {
-      rx[u] = load_raw(px + (size_t)(r0 + u * step) * C);
-      rd[u] = load_raw(pd + (size_t)(r0 + u * step) * C);
-    }
-  }
-}
-
-__device__ __forceinline__ void unpack(const float*, uint4 r, float* out) {
-  out[0] = __uint_as_float(r.x);
-  out[1] = __uint_as_float(r.y);
-  out[2] = __uint_as_float(r.z);
-  out[3] = __uint_as_float(r.w);
-}
-
-__device__ __forceinline__ void unpack(const __nv_bfloat16*, uint4 r, float* out) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
 
 // The same layout as the reductions' (ops/groupnorm.py::_shard_smem
 // computes it too): the reduction scratch, this CTA's NA = 2 sums per
@@ -1545,21 +2373,6 @@ __global__ void __launch_bounds__(kShardApplyMaxThreads)
     }
     load_batch(raw, x + base, r0 + step, row1, rslots, C);
   }
-}
-
-// The forward's per-channel constants of K1-bwd at channel c of image b:
-// a = gamma * r is its product, so pre = fmaf(x - mu, a, beta) and the ReLU
-// mask have its bits.
-__device__ __forceinline__ void backward_constants(const float* __restrict__ gamma,
-                                                   const float* __restrict__ beta,
-                                                   const float* __restrict__ stats, int b, int G,
-                                                   int gs, int c, float& mu, float& r, float& a,
-                                                   float& be) {
-  const float* st = stats + ((size_t)b * G + c / gs) * 2;
-  mu = st[0];
-  r = st[1];
-  a = gamma[c] * r;
-  be = beta[c];
 }
 
 // The layout of gn_shard_stats_cluster_kernel; rank 0 writes sums[b, 0, c] =
@@ -1853,6 +2666,36 @@ extern "C" int crossloc_gn_cluster_backward(const void* x, const void* dy, const
                                                   box_rows, nbox, threads, smem, relu, s);
 }
 
+extern "C" int crossloc_gn_grid_forward(const void* x, void* y, const float* gamma,
+                                        const float* beta, float* stats, float* scratch, int B,
+                                        int HW, int C, int G, int cb, int k, int rows_per_cta,
+                                        int box_rows, int nbox, int threads, int smem, int grid,
+                                        float eps, int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_grid<__nv_bfloat16>(x, y, gamma, beta, stats, scratch, B, HW, C, G, cb,
+                                              k, rows_per_cta, box_rows, nbox, threads, smem,
+                                              grid, eps, relu, s)
+                 : launch_grid<float>(x, y, gamma, beta, stats, scratch, B, HW, C, G, cb, k,
+                                      rows_per_cta, box_rows, nbox, threads, smem, grid, eps,
+                                      relu, s);
+}
+
+extern "C" int crossloc_gn_grid_backward(const void* x, const void* dy, const float* gamma,
+                                         const float* beta, const float* stats, void* dx,
+                                         float* dgamma, float* dbeta, float* scratch, int B,
+                                         int HW, int C, int G, int cb, int k, int rows_per_cta,
+                                         int box_rows, int nbox, int threads, int smem, int grid,
+                                         int relu, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_grid_backward<__nv_bfloat16>(x, dy, gamma, beta, stats, dx, dgamma,
+                                                       dbeta, scratch, B, HW, C, G, cb, k,
+                                                       rows_per_cta, box_rows, nbox, threads,
+                                                       smem, grid, relu, s)
+                 : launch_grid_backward<float>(x, dy, gamma, beta, stats, dx, dgamma, dbeta,
+                                               scratch, B, HW, C, G, cb, k, rows_per_cta,
+                                               box_rows, nbox, threads, smem, grid, relu, s);
+}
+
 extern "C" int crossloc_gn_shard_stats(const void* x, float* out, int B, int HW, int C, int G,
                                        int cb, int cluster, int rows_per_cta, int threads,
                                        int smem, int is_bf16, void* stream) {
@@ -1919,6 +2762,9 @@ extern "C" const char* crossloc_cuda_error_string(int err) {
     case kErrNoCluster:
       return "no cluster of this size and shared memory fits the card "
              "(cudaOccupancyMaxActiveClusters = 0)";
+    case kErrNoResidency:
+      return "the grid design's CTAs do not all fit the card at once (occupancy x SMs is "
+             "below the planned grid), so its cooperative launch is refused";
     default:
       return cudaGetErrorString(static_cast<cudaError_t>(err));
   }

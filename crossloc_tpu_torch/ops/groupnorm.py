@@ -5,11 +5,14 @@ tensor it launches the hand-written kernel of `csrc/groupnorm.cu` or raises;
 on a CPU tensor it runs `group_norm_relu_plain`. Nothing falls back from the
 kernel to the plain version. `_plan` picks the kernel's design per shape:
 one cluster launch that reads x once where a slab of one image fits a thread
-block cluster's shared memory, the three-pass design (stats, finalize,
-apply) elsewhere; the note at the top of the source says why.
-`_plan_backward` does the same for the backward, whose slab is x and dy
-together: the cluster design (clusters of up to 16 CTAs), or the four-kernel
-design that reads both twice.
+block cluster's shared memory; else one cooperative grid launch that reads x
+once where the slab fits the card's shared memory (the stems); the
+three-pass design (stats, finalize, apply) beyond that; the note at the top
+of the source says why. `_plan_backward` does the same for the backward,
+whose slab is x and dy together: the cluster design (clusters of up to 16
+CTAs), the grid design, or the four-kernel design that reads both twice.
+Where a slab outgrows the card's shared memory, the grid design holds what
+it takes and streams the rest from device memory, read twice.
 
 Semantics match `crossloc_tpu/ops/pallas_groupnorm.py` (`_kernel`, and its
 reference `_gn_reference`): contiguous channel groups, fp32 statistics with
@@ -41,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 from typing import NamedTuple
 
 import torch
@@ -53,6 +57,10 @@ _WARP = 32
 # moves. Measured on an H100 against 32 B (one sector): as fast or faster at
 # every shape of the main path (PERF.md)
 _MIN_ROW_BYTES = 64
+# the grid design's channel blocks: whole L2 lines (or the whole pixel), at
+# most 16 vectors a row
+_LINE_BYTES = 128
+_GRID_MAX_ROW_BYTES = 256
 _CLUSTER_SIZES = (1, 2, 4, 8)  # up to the portable 8 (no opt-in); powers of two pack GPCs
 # K1-bwd, after the portable sizes: 16 CTAs, which H100 allows on request
 # (non-portable); its GPCs hold 16-18 SMs
@@ -65,6 +73,15 @@ _SLAB_PER_CTA = 200 * 1024  # slab bytes one CTA may hold (leaves room for the r
 # (1 KB of it reserved per CTA), so one CTA's loads overlap another's
 # statistics; else one CTA per SM
 _CTA_SMEM_LIMITS = (228 * 1024 // 2 - 1024, _SMEM_PER_CTA)
+_SMS = 132  # an H100 SXM's SMs: the grid design's planning default
+_GRID_MAX_BOXES = 32  # the grid kernels keep their boxes' mbarrier parities in one word
+# the grid planner's cost, in bytes an SM streams (its share of 3.35 TB/s
+# is about 25 GB/s): a round's fixed cost (the statistics tail, the unit's
+# barrier and merge, while its own loads and stores idle), and the weight of
+# the unit's partials each CTA adds (latency-bound L2 reads); set so that the
+# planner picks, at every stem row, the plan measured fastest (PERF.md)
+_GRID_ROUND_BYTES = 192 * 1024
+_GRID_MERGE_WEIGHT = 2
 # the cross-shard kernels (`_shard_plan`): the reductions' cluster sizes,
 # the least grid they aim for in CTAs (an H100 has 132 SMs), and the threads
 # they aim for across the grid, times the tensors each thread reads (1 for
@@ -106,14 +123,15 @@ def _check(x, scale, bias, groups: int) -> None:
 
 class Plan(NamedTuple):
     """How K1 or K1-bwd runs one shape (see `_plan`, `_plan_backward`)."""
-    design: str         # "cluster", or "three_pass" (K1) / "four_kernel" (K1-bwd)
-    cb: int             # channels per cluster (whole groups); 0 otherwise
-    cluster: int        # CTAs per cluster
+    design: str         # "cluster", "grid", or "three_pass" (K1) / "four_kernel" (K1-bwd)
+    cb: int             # channels per cluster or unit (whole groups); 0 otherwise
+    cluster: int        # CTAs per cluster; "grid": CTAs per unit (image, channel block)
     rows_per_cta: int   # H*W rows each CTA holds (the last CTA may hold fewer)
     box_rows: int       # rows per TMA box
     nbox: int           # boxes per CTA
     threads: int        # threads per CTA
     smem_bytes: int     # dynamic shared memory per CTA
+    grid: int = 0       # "grid": CTAs launched, all resident at once
 
 
 _THREE_PASS = Plan("three_pass", 0, 0, 0, 0, 0, 0, 0)
@@ -187,29 +205,169 @@ def _cluster_plan(HW: int, C: int, G: int, itemsize: int, slabs: int, smem_fn,
     return None
 
 
+def _grid_smem(itemsize: int, cb: int, gs: int, box_rows: int, nbox: int, threads: int,
+               backward: bool) -> int:
+    """Dynamic shared memory of one grid CTA (the kernels' layouts): as the
+    cluster designs' without the exchange slots (the mbarriers rounded to an
+    even count), plus the merge's stage (4 floats a thread), the unit's two
+    sums per channel, and the pivots, means and rstd (forward) or the two
+    coefficients per group (backward)."""
+    slots = _red_slots(cb, itemsize, threads)
+    slab = nbox * box_rows * cb * itemsize
+    slabs = -(-slab // 128) * 128 + -(-slab // 16) * 16 if backward else -(-slab // 16) * 16
+    tail = (2 if backward else 3) * cb + 2 * (cb // gs)
+    return 128 + slabs + 16 * -(-nbox // 2) + 4 * (2 * slots * cb + 4 * threads + tail)
+
+
+def _grid_box(HW: int, k: int, row_bytes: int):
+    """(box_rows, nbox, rows_per_cta, ranks) when H*W rows are cut for k
+    CTAs, in at most _GRID_MAX_BOXES boxes of at most _BOX_MAX rows, each
+    box 128-byte aligned in shared memory: the fewest boxes whose rows leave
+    all k CTAs rows, else the fewest rows a CTA; None where no cut fits."""
+    rows = -(-HW // k)
+    align = 128 // math.gcd(128, row_bytes)
+    cuts = []
+    for nbox in range(-(-rows // _BOX_MAX), _GRID_MAX_BOXES + 1):
+        box_rows = -(-rows // nbox)
+        box_rows = -(-box_rows // align) * align if nbox > 1 else box_rows
+        if box_rows <= _BOX_MAX:
+            cuts.append((box_rows, nbox, nbox * box_rows, -(-HW // (nbox * box_rows))))
+    whole = [c for c in cuts if c[3] == k]
+    return whole[0] if whole else min(cuts, key=lambda c: c[2], default=None)
+
+
+def _grid_blocks(C: int, G: int, itemsize: int):
+    """The grid design's channel blocks in the order it tries them: whole
+    groups in 16-byte vectors, at most _GRID_MAX_ROW_BYTES a pixel, that are
+    the whole pixel or whole L2 lines, widest first (a strided block narrower
+    than a line costs HBM part of a line each row: measured, PERF.md); then
+    K1's block of _MIN_ROW_BYTES, if it is not among them."""
+    gs = C // G
+    wide = [k * gs for k in range(G, 0, -1)
+            if G % k == 0 and k * gs * itemsize % _VEC_BYTES == 0
+            and k * gs * itemsize <= _GRID_MAX_ROW_BYTES
+            and (k * gs == C or k * gs * itemsize >= _LINE_BYTES)]
+    narrow = _channel_block(C, G, itemsize)
+    return wide, [narrow] if narrow and narrow not in wide else []
+
+
+def _grid_held(rows_per_cta: int, row_bytes: int, slabs: int):
+    """(box_rows, nbox) of the rows a streaming CTA holds: as many as
+    _SLAB_PER_CTA takes, in the fewest boxes of at most _BOX_MAX rows, each
+    128-byte aligned; None where they would not reach half its rows."""
+    most = _SLAB_PER_CTA // (slabs * row_bytes)
+    align = 128 // math.gcd(128, row_bytes)
+    nbox = min(-(-most // _BOX_MAX), _GRID_MAX_BOXES)
+    box_rows = min(most // nbox // align * align, _BOX_MAX)
+    if box_rows < 1 or 2 * nbox * box_rows < rows_per_cta:
+        return None
+    return box_rows, nbox
+
+
+def _grid_plan_block(B: int, HW: int, C: int, G: int, itemsize: int, slabs: int, cb: int,
+                     stream: bool, sms: int):
+    """(cost, plan) of the best grid plan for one channel block, or None:
+    held whole (every count k <= `sms` of CTAs a unit whose CTAs hold at most
+    _SLAB_PER_CTA bytes of slab; only counts that divide the grid where the
+    units fill more than one round, unless none fits: every round then
+    starts whole units, and no unit waits on CTAs still in an earlier one),
+    or with `stream`, for a slab the card does not hold: `sms` CTAs a unit,
+    each holding what _SLAB_PER_CTA takes and streaming the rest (at most as
+    many rows). See `_grid_plan` for the cost."""
+    gs = C // G
+    row_bytes = cb * itemsize
+    vpr = row_bytes // _VEC_BYTES
+    if cb > _BOX_MAX or vpr > _CLUSTER_THREADS:
+        return None
+    threads = vpr * (_CLUSTER_THREADS // vpr)
+    units = B * (C // cb)
+
+    def cost(plan, streamed):
+        rounds = -(-units * plan.cluster // plan.grid)
+        sm_bytes = (plan.rows_per_cta * (slabs + 1) + streamed * slabs // 2) * row_bytes
+        merge = _GRID_MERGE_WEIGHT * plan.cluster * 2 * cb * 4
+        return rounds * (sm_bytes + _GRID_ROUND_BYTES + merge)
+
+    if stream:
+        rows_per_cta = -(-HW // sms)
+        held = _grid_held(rows_per_cta, row_bytes, slabs)
+        if held is None or held[0] * held[1] >= rows_per_cta:
+            return None
+        smem = _grid_smem(itemsize, cb, gs, *held, threads, slabs == 2)
+        ranks = -(-HW // rows_per_cta)
+        plan = Plan("grid", cb, ranks, rows_per_cta, *held, threads, smem,
+                    min(sms, units * ranks))
+        return cost(plan, rows_per_cta - held[0] * held[1]), plan
+    best = {}  # aligned or not -> (cost, plan)
+    for k in range(1, sms + 1):
+        box = _grid_box(HW, k, row_bytes)
+        if box is None:
+            continue
+        box_rows, nbox, rows_per_cta, ranks = box
+        smem = _grid_smem(itemsize, cb, gs, box_rows, nbox, threads, slabs == 2)
+        if slabs * rows_per_cta * row_bytes > _SLAB_PER_CTA or smem > _SMEM_PER_CTA:
+            continue
+        plan = Plan("grid", cb, ranks, rows_per_cta, box_rows, nbox, threads, smem,
+                    min(sms, units * ranks))
+        aligned = plan.grid % ranks == 0
+        c = cost(plan, 0)
+        if aligned not in best or c < best[aligned][0]:
+            best[aligned] = (c, plan)
+    return best.get(True, best.get(False))
+
+
+def _grid_plan(B: int, HW: int, C: int, G: int, itemsize: int, slabs: int, sms: int = _SMS):
+    """The grid plan for `slabs` tensors of [H*W, cb] per unit (image, channel
+    block), or None where none fits: one CTA an SM (two measured slower at
+    every stem row, PERF.md), the grid every SM (or one CTA a (unit, rank)
+    pair, if fewer). Over the blocks of `_grid_blocks`, held whole in shared
+    memory or, where no block of whole lines or pixels is held whole, such a
+    block streaming (a strided block narrower than a line measured slower
+    streaming than the four-kernel design, PERF.md): the plan of least cost,
+    ties to the earlier block. The cost is what an SM takes: rounds of pairs
+    times the bytes it reads and writes a round (streamed rows read again,
+    half of them from the L2), plus _GRID_ROUND_BYTES, plus the unit's
+    partials each CTA adds (_GRID_MERGE_WEIGHT times their bytes). Only
+    shapes that K1's own block cuts (at least _MIN_ROW_BYTES a pixel in whole
+    groups) take the design, as the cluster design."""
+    if C * itemsize % _VEC_BYTES or not _channel_block(C, G, itemsize):
+        return None
+    wide, narrow = _grid_blocks(C, G, itemsize)
+    whole = [_grid_plan_block(B, HW, C, G, itemsize, slabs, cb, False, sms) for cb in wide]
+    if not any(whole):
+        whole += [_grid_plan_block(B, HW, C, G, itemsize, slabs, cb, True, sms) for cb in wide]
+    found = [f for f in whole + [_grid_plan_block(B, HW, C, G, itemsize, slabs, cb, False, sms)
+                                 for cb in narrow] if f is not None]
+    return min(found, key=lambda f: f[0])[1] if found else None
+
+
 @functools.lru_cache(maxsize=None)
-def _plan(B: int, H: int, W: int, C: int, G: int, dtype) -> Plan:
-    """Pick K1's design for one shape: pure arithmetic on the shape.
+def _plan(B: int, H: int, W: int, C: int, G: int, dtype, sms: int = _SMS) -> Plan:
+    """Pick K1's design for one shape on a card of `sms` SMs: pure
+    arithmetic on the shape.
 
     "cluster" when the slab of one (image, channel block), H*W*cb*itemsize,
     fits a cluster of at most 8 CTAs: the smallest cluster whose CTAs are
     small enough that two share an SM (about 100 KB of slab each), else the
     smallest whose CTAs hold at most 200 KB of slab (one CTA per SM).
-    Everything else runs "three_pass"."""
-    del B  # one cluster per image and channel block, whatever the batch
+    "grid" when it fits at most `sms` CTAs of at most 200 KB, or twice that
+    with half of it streamed (`_grid_plan`). Everything else runs
+    "three_pass"."""
     plan = _cluster_plan(H * W, C, G, dtype.itemsize, 1, _cluster_smem)
+    plan = plan or _grid_plan(B, H * W, C, G, dtype.itemsize, 1, sms=sms)
     return plan or _THREE_PASS
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_backward(B: int, H: int, W: int, C: int, G: int, dtype) -> Plan:
+def _plan_backward(B: int, H: int, W: int, C: int, G: int, dtype, sms: int = _SMS) -> Plan:
     """Pick K1-bwd's design for one shape, as `_plan` does for K1, with the
     slab of x and that of dy held together: "cluster" where both fit a
     cluster of at most 8 CTAs, else of 16 (at most 200 KB of the two a
-    CTA); "four_kernel" elsewhere."""
-    del B
+    CTA); "grid" where they fit `sms` CTAs, or twice that with half of it
+    streamed (in whole lines or pixels); "four_kernel" elsewhere."""
     plan = _cluster_plan(H * W, C, G, dtype.itemsize, 2, _cluster_backward_smem,
                          (_CLUSTER_SIZES, _CLUSTER_SIZES_NON_PORTABLE))
+    plan = plan or _grid_plan(B, H * W, C, G, dtype.itemsize, 2, sms)
     return plan or _FOUR_KERNEL
 
 
@@ -317,6 +475,10 @@ def _lib():
         lib.crossloc_gn_backward.restype = i
         lib.crossloc_gn_cluster_backward.argtypes = [p] * 9 + [i] * 13 + [p]
         lib.crossloc_gn_cluster_backward.restype = i
+        lib.crossloc_gn_grid_forward.argtypes = [p] * 6 + [i] * 12 + [ctypes.c_float, i, i, p]
+        lib.crossloc_gn_grid_forward.restype = i
+        lib.crossloc_gn_grid_backward.argtypes = [p] * 9 + [i] * 14 + [p]
+        lib.crossloc_gn_grid_backward.restype = i
         lib.crossloc_gn_shard_stats.argtypes = [p] * 2 + [i] * 10 + [p]
         lib.crossloc_gn_shard_stats.restype = i
         lib.crossloc_gn_shard_apply.argtypes = [p] * 6 + [i] * 8 + [ctypes.c_float, i, i, p]
@@ -366,8 +528,9 @@ def _ptr(t) -> int:
 
 def _three_pass(x, scale, bias, groups: int, eps: float, relu: bool, stats=None):
     """The three-pass design on x's stream: stats, finalize, apply (three
-    kernels, a scratch of partials). `_plan` sends slabs too large for a
-    cluster here; called directly, it takes every shape (for comparisons).
+    kernels, a scratch of partials). `_plan` sends slabs too large for the
+    card's shared memory here; called directly, it takes every shape (for
+    comparisons).
     A float32 `stats` [B, groups, 2] receives (mu, rstd) per (image, group)."""
     _check_cuda(x, scale, bias)
     lib = _lib()
@@ -405,14 +568,42 @@ def _cluster(x, scale, bias, groups: int, eps: float, relu: bool, plan: Plan, st
     return y
 
 
+def _grid(x, scale, bias, groups: int, eps: float, relu: bool, plan: Plan, stats=None):
+    """The grid design on x's stream: one cooperative launch, x read once; a
+    scratch of each rank's two sums per channel and one arrival counter a
+    unit, which the kernel sets to 0 itself."""
+    lib = _lib()
+    B, H, W, C = x.shape
+    units = B * (C // plan.cb)
+    y = torch.empty_like(x)
+    scratch = torch.empty(units * (plan.cluster * 2 * plan.cb + 1), device=x.device,
+                          dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_grid_forward(
+            x.data_ptr(), y.data_ptr(), scale.data_ptr(), bias.data_ptr(), _ptr(stats),
+            scratch.data_ptr(), B, H * W, C, groups, plan.cb, plan.cluster, plan.rows_per_cta,
+            plan.box_rows, plan.nbox, plan.threads, plan.smem_bytes, plan.grid, float(eps),
+            int(relu), int(x.dtype == torch.bfloat16), stream)
+    _raise_on(err, lib, "grid")
+    group_norm_relu.launches += 1
+    return y
+
+
+def _sms(x) -> int:
+    return torch.cuda.get_device_properties(x.device).multi_processor_count
+
+
 def _launch(x, scale, bias, groups: int, eps: float, relu: bool, stats=None):
     """Launch K1 on x's stream in the design `_plan` picks. Raises on any
     input it does not take; a failed launch raises, it never falls back."""
     _check_cuda(x, scale, bias)
     B, H, W, C = x.shape
-    plan = _plan(B, H, W, C, groups, x.dtype)
+    plan = _plan(B, H, W, C, groups, x.dtype, _sms(x))
     if plan.design == "cluster":
         return _cluster(x, scale, bias, groups, eps, relu, plan, stats)
+    if plan.design == "grid":
+        return _grid(x, scale, bias, groups, eps, relu, plan, stats)
     return _three_pass(x, scale, bias, groups, eps, relu, stats)
 
 
@@ -453,8 +644,8 @@ def _check_backward(x, scale, bias, stats, dy, groups: int) -> None:
 def _four_kernel_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
     """The four-kernel backward on x's stream: per-chunk partials, per-image
     sums, the group coefficients with dscale and dbias, dx (x and dy read
-    twice). `_plan_backward` sends slabs too large for a cluster here;
-    called directly, it takes every shape (for comparisons)."""
+    twice). `_plan_backward` sends slabs too large for the card's shared
+    memory here; called directly, it takes every shape (for comparisons)."""
     _check_backward(x, scale, bias, stats, dy, groups)
     lib = _lib()
     B, H, W, C = x.shape
@@ -500,6 +691,32 @@ def _cluster_backward(x, scale, bias, stats, dy, groups: int, relu: bool, plan: 
     return dx, dscale, dbias
 
 
+def _grid_backward(x, scale, bias, stats, dy, groups: int, relu: bool, plan: Plan):
+    """The grid backward on x's stream: one cooperative launch that reads x
+    and dy once, then the images' per-channel sums added in order into
+    dscale and dbias; one scratch of those sums, each rank's per-channel
+    sums and one arrival counter a unit."""
+    lib = _lib()
+    B, H, W, C = x.shape
+    units = B * (C // plan.cb)
+    dx = torch.empty_like(x)
+    dscale = torch.empty(C, device=x.device, dtype=torch.float32)
+    dbias = torch.empty(C, device=x.device, dtype=torch.float32)
+    scratch = torch.empty(B * 2 * C + units * (plan.cluster * 2 * plan.cb + 1),
+                          device=x.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.crossloc_gn_grid_backward(
+            x.data_ptr(), dy.data_ptr(), scale.data_ptr(), bias.data_ptr(), stats.data_ptr(),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), scratch.data_ptr(), B, H * W, C,
+            groups, plan.cb, plan.cluster, plan.rows_per_cta, plan.box_rows, plan.nbox,
+            plan.threads, plan.smem_bytes, plan.grid, int(relu), int(x.dtype == torch.bfloat16),
+            stream)
+    _raise_on(err, lib, "grid backward")
+    group_norm_relu_backward.launches += 1
+    return dx, dscale, dbias
+
+
 def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool = True):
     """K1's backward on x's stream, in the design `_plan_backward` picks:
     (dx, dscale, dbias) from x, the forward's `stats` (float32 [B, groups,
@@ -508,9 +725,11 @@ def group_norm_relu_backward(x, scale, bias, stats, dy, groups: int, relu: bool 
     raises, it never falls back."""
     _check_backward(x, scale, bias, stats, dy, groups)
     B, H, W, C = x.shape
-    plan = _plan_backward(B, H, W, C, groups, x.dtype)
+    plan = _plan_backward(B, H, W, C, groups, x.dtype, _sms(x))
     if plan.design == "cluster":
         return _cluster_backward(x, scale, bias, stats, dy, groups, relu, plan)
+    if plan.design == "grid":
+        return _grid_backward(x, scale, bias, stats, dy, groups, relu, plan)
     return _four_kernel_backward(x, scale, bias, stats, dy, groups, relu)
 
 

@@ -1,10 +1,11 @@
 """Kernel K1 on the card against its plain twin, beyond the main path's shapes.
 
 Both designs are held: the one `_plan` picks (the cluster kernel wherever a
-slab fits a cluster) and the three-pass design, reached through `_three_pass`.
-K1's backward is held against the autograd of the plain twin in both its
-designs: the one `_plan_backward` picks (the cluster kernel wherever the
-slabs of x and dy fit a cluster) and the four-kernel design, reached through
+slab fits a cluster, the grid kernel where it fits the card: the stems) and
+the three-pass design, reached through `_three_pass`. K1's backward is held
+against the autograd of the plain twin in both its designs: the one
+`_plan_backward` picks (the cluster or grid kernel wherever the slabs of x
+and dy fit) and the four-kernel design, reached through
 `_four_kernel_backward`.
 
 Needs a CUDA card: every test skips without one. It imports no JAX, so it
@@ -25,6 +26,8 @@ from crossloc_tpu_torch.ops import (
 from crossloc_tpu_torch.ops.groupnorm import (
     _cluster,
     _four_kernel_backward,
+    _grid,
+    _grid_backward,
     _launch,
     _plan,
     _plan_backward,
@@ -103,10 +106,10 @@ def _fit_limit(C, G, dtype):
 @pytest.mark.parametrize("C", [512, 2048])
 def test_slab_at_and_over_the_fit_limit(card, C, dtype):
     """A slab that fills 8 CTAs to the limit runs the cluster kernel; one row
-    more goes to the three-pass design; both agree with the plain twin."""
+    more goes to the grid design; both agree with the plain twin."""
     dt = getattr(torch, dtype)
     limit = _fit_limit(C, 32, dt)
-    for rows, design in ((limit, "cluster"), (limit + 1, "three_pass")):
+    for rows, design in ((limit, "cluster"), (limit + 1, "grid")):
         assert _plan(1, rows, 1, C, 32, dt).design == design
         x, s, b = _inputs((1, rows, 1), C, dt, card, seed=rows)
         _check_against_plain(group_norm_relu, x, s, b, 32)
@@ -309,11 +312,11 @@ def _backward_fit_limit(C, G, dtype):
 @pytest.mark.parametrize("C", [512, 2048])
 def test_backward_slab_at_and_over_the_fit_limit(card, C, dtype):
     """Slabs of x and dy that fill a cluster of 16 CTAs to the limit run the
-    cluster backward; one row more goes to the four-kernel design; both agree
-    with the plain twin."""
+    cluster backward; one row more goes to the grid design; both agree with
+    the plain twin."""
     dt = getattr(torch, dtype)
     limit = _backward_fit_limit(C, 32, dt)
-    for rows, design in ((limit, "cluster"), (limit + 1, "four_kernel")):
+    for rows, design in ((limit, "cluster"), (limit + 1, "grid")):
         assert _plan_backward(1, rows, 1, C, 32, dt).design == design
         x, s, b = _inputs((1, rows, 1), C, dt, card, seed=rows)
         _check_backward(x, s, b, 32, True, _off_kink_dy(x, s, b, 32, seed=rows + 1))
@@ -364,15 +367,15 @@ def test_backward_takes_a_non_contiguous_dy_through_autograd(card):
         group_norm_relu_backward(x, s, b, stats, dy_t.transpose(1, 2).contiguous().bfloat16(), 32)
 
 
-@pytest.mark.parametrize("design", ["cluster", "three_pass"])
+@pytest.mark.parametrize("design", ["cluster", "grid", "three_pass"])
 def test_forward_writes_the_statistics(card, design):
-    B, H, W, C, G = 2, 60, 90, 256, 32
+    B, H, W, C, G = (2, 60, 90, 256, 32) if design != "grid" else (2, 240, 360, 64, 32)
     x, s, b = _inputs((B, H, W), C, torch.float32, card, seed=13)
     stats = torch.full((B, G, 2), float("nan"), device=card)
-    if design == "cluster":
+    if design in ("cluster", "grid"):
         plan = _plan(B, H, W, C, G, x.dtype)
-        assert plan.design == "cluster"
-        _cluster(x, s, b, G, 1e-5, True, plan, stats)
+        assert plan.design == design
+        (_cluster if design == "cluster" else _grid)(x, s, b, G, 1e-5, True, plan, stats)
     else:
         _three_pass(x, s, b, G, 1e-5, True, stats)
     xd = x.double().reshape(B, H * W, G, C // G)
@@ -680,3 +683,203 @@ def test_cross_shard_entries_launch_one_kernel_each(card):
     wide, ws, wb = _inputs((1, 4, 4), 2048, torch.float32, card)
     with pytest.raises(ValueError, match="no cross-shard plan"):
         ops.group_norm_shard_stats(wide, 1)  # one group of 512 vectors: wider than a CTA
+
+
+# -- the grid design (the stems: slabs larger than a cluster holds) ----------
+
+# (C, H, W) of stem1 and stem2 at 480x720, and the batches: one image, the
+# scripts' 12 with its factor of 3, and 3. Every stem takes the grid design
+# but stem1's f32 backward, which keeps the four-kernel one
+STEMS = [(32, 480, 720), (64, 240, 360)]
+STEM_BATCHES = [1, 3, 12]
+
+
+def _backward_design(C, dtype):
+    return "four_kernel" if (C, dtype) == (32, torch.float32) else "grid"
+
+
+@pytest.mark.parametrize("batch", STEM_BATCHES, ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STEMS, ids=lambda s: "x".join(map(str, s)))
+def test_grid_matches_plain_at_the_stems(card, shape, dtype, batch):
+    """The grid design, forward (ReLU on and off) and backward through
+    autograd (stem1's in the four-kernel design), against the plain twin
+    under the main path's tolerances."""
+    C, H, W = shape
+    dt = getattr(torch, dtype)
+    assert _plan(batch, H, W, C, 32, dt).design == "grid"
+    assert _plan_backward(batch, H, W, C, 32, dt).design == _backward_design(C, dt)
+    x, s, b = _inputs((batch, H, W), C, dt, card, seed=C + batch)
+    _check_against_plain(group_norm_relu, x, s, b, 32)
+    for relu in (True, False):
+        _check_backward(x, s, b, 32, relu, _off_kink_dy(x, s, b, 32, seed=C + batch + 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STEMS, ids=lambda s: "x".join(map(str, s)))
+def test_grid_gives_the_same_bits_twice(card, shape, dtype):
+    """No float atomics: every sum has a fixed order, whichever CTA arrives
+    last at a unit's barrier."""
+    C, H, W = shape
+    x, s, b = _inputs((3, H, W), C, getattr(torch, dtype), card, seed=31)
+    dy = _off_kink_dy(x, s, b, 32, seed=32)
+    runs = []
+    for _ in range(2):
+        stats = torch.empty(3, 32, 2, device=card)
+        y = _launch(x, s, b, 32, 1e-5, True, stats)
+        runs.append((y, stats) + group_norm_relu_backward(x, s, b, stats, dy, 32, True))
+    torch.cuda.synchronize()
+    for a, r in zip(*runs):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("shape", STEMS, ids=lambda s: "x".join(map(str, s)))
+def test_grid_large_mean_keeps_f32_accuracy(card, shape, relu):
+    """|mu| / std = 1000 in the grid design: the forward within the f32
+    tolerance plus two f32 roundings of mu against float64; the backward
+    within the f32 tolerance plus the plain twin's own distance from
+    float64 (as the cluster design's tests)."""
+    C, H, W = shape
+    B, G = 2, 32
+    assert _plan(B, H, W, C, G, torch.float32).design == "grid"
+    g = torch.Generator(device="cpu").manual_seed(33)
+    x = (torch.randn(B, H, W, C, generator=g) + 1000.0).to(card)
+    s = torch.randn(C, generator=g).to(card)
+    b = torch.randn(C, generator=g).to(card)
+    y = group_norm_relu(x, s, b, G, 1e-5, relu)
+    ref = _gn_float64(x, s, b, G, relu)
+    limit = 1e-4 + 1e-4 * ref.abs() + 2.0**-23 * 1000.0 * s.double().abs() * 2.0
+    err = (y.double() - ref).abs()
+    assert bool((err <= limit).all()), float((err - limit).max())
+    del y, ref, err
+    dy = _off_kink_dy(x, s, b, G, seed=34)
+    leaves = [t.double().requires_grad_() for t in (x, s, b)]
+    exact = torch.autograd.grad(_gn_float64(leaves[0], leaves[1], leaves[2], G, relu), leaves,
+                                dy.double())
+    del leaves
+    plain = group_norm_relu_backward_plain(x, s, b, dy, G, 1e-5, relu)
+    stats = torch.empty(B, G, 2, device=card)
+    _launch(x, s, b, G, 1e-5, relu, stats)
+    got = group_norm_relu_backward(x, s, b, stats, dy, G, relu)
+    for a, p, e in zip(got, plain, exact):
+        limit = (1e-4 * e.abs().max() + (1e-4 * e.abs() if e.dim() == 4 else 0.0)
+                 + (p.double() - e).abs().max())
+        err = (a.double() - e).abs()
+        assert bool((err <= limit).all()), float((err - limit).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_runs_captured_in_a_cuda_graph(card, dtype):
+    """A cooperative launch captured in a CUDA graph and replayed gives the
+    eager call's bits: the arrival counters are set to 0 inside each call."""
+    C, H, W = STEMS[1]
+    x, s, b = _inputs((2, H, W), C, getattr(torch, dtype), card, seed=35)
+    dy = _off_kink_dy(x, s, b, 32, seed=36)
+    stats = torch.empty(2, 32, 2, device=card)
+    y0 = _launch(x, s, b, 32, 1e-5, True, stats)
+    g0 = group_norm_relu_backward(x, s, b, stats, dy, 32, True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = _launch(x, s, b, 32, 1e-5, True, stats)
+        g = group_norm_relu_backward(x, s, b, stats, dy, 32, True)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, y0)
+    for a, r in zip(g, g0):
+        assert torch.equal(a, r)
+
+
+def test_grid_backward_takes_a_non_contiguous_dy_through_autograd(card):
+    C, H, W = STEMS[1]
+    x, s, b = _inputs((2, H, W), C, torch.float32, card, seed=37)
+    assert _plan_backward(2, H, W, C, 32, x.dtype).design == "grid"
+    dy_t = _off_kink_dy(x, s, b, 32, seed=38).transpose(1, 2).contiguous()
+    leaves = [t.clone().requires_grad_() for t in (x, s, b)]
+    y = group_norm_relu(*leaves, 32)
+    got = torch.autograd.grad(y.transpose(1, 2), leaves, dy_t)  # dy arrives transposed
+    ref = group_norm_relu_backward_plain(x, s, b, dy_t.transpose(1, 2).contiguous(), 32)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", STEMS, ids=lambda s: "x".join(map(str, s)))
+def test_grid_launches_one_kernel_forward_and_two_backward(card, shape, dtype):
+    """At the stems a K1 call is one CUDA kernel (three in the three-pass
+    design) and a K1-bwd call on the grid design two (four in the
+    four-kernel design, which stem1's backward keeps), counted by
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    C, H, W = shape
+    x, s, b = _inputs((2, H, W), C, getattr(torch, dtype), card, seed=39)
+    dy = _off_kink_dy(x, s, b, 32, seed=40)
+    stats = torch.empty(2, 32, 2, device=card)
+    calls = [lambda: _launch(x, s, b, 32, 1e-5, True, stats),
+             lambda: group_norm_relu_backward(x, s, b, stats, dy, 32, True),
+             lambda: _three_pass(x, s, b, 32, 1e-5, True),
+             lambda: _four_kernel_backward(x, s, b, stats, dy, 32, True)]
+    mark = torch.empty(1, device=card)
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    # one session, the calls separated by a marker kernel (a fill); the
+    # card's profiler now and then drops a session's first events or all of
+    # them, so a trace counts only with every marker in it (three tries)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                mark.fill_(1.0)
+                fn()
+            mark.fill_(1.0)
+            torch.cuda.synchronize()
+        counts = []
+        for e in sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start):
+            if "fill" in e.name.lower():
+                counts.append(0)
+            elif counts:
+                counts[-1] += 1
+        if len(counts) == len(calls) + 1:
+            break
+    assert counts == [1, 2 if _backward_design(C, x.dtype) == "grid" else 4, 3, 4, 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grid_limit_and_one_row_beyond(card, dtype):
+    """At stem1's width: the largest H*W the grid holds (forward) runs the
+    grid kernel, one row more the three-pass design; both agree with the
+    plain twin."""
+    dt = getattr(torch, dtype)
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if _plan(1, mid, 1, 32, 32, dt).design in ("cluster", "grid") else (lo, mid)
+    for rows, design in ((lo, "grid"), (lo + 1, "three_pass")):
+        assert _plan(1, rows, 1, 32, 32, dt).design == design
+        x, s, b = _inputs((1, rows, 1), 32, dt, card, seed=41)
+        _check_against_plain(group_norm_relu, x, s, b, 32)
+
+
+def test_grid_refused_launch_raises(card):
+    """A grid larger than the card holds at once is refused by the launch's
+    residency check and raises; nothing falls back to another design."""
+    C, H, W = STEMS[1]
+    x, s, b = _inputs((8, H, W), C, torch.float32, card, seed=42)
+    plan = _plan(8, H, W, C, 32, x.dtype)
+    units = 8 * C // plan.cb
+    too_wide = plan._replace(grid=min(units * plan.cluster, 4 * plan.grid))
+    n0 = group_norm_relu.launches
+    with pytest.raises(RuntimeError, match="grid launch failed"):
+        _grid(x, s, b, 32, 1e-5, True, too_wide)
+    assert group_norm_relu.launches == n0
+    stats = torch.empty(8, 32, 2, device=card)
+    _launch(x, s, b, 32, 1e-5, True, stats)
+    bplan = _plan_backward(8, H, W, C, 32, x.dtype)
+    with pytest.raises(RuntimeError, match="grid backward launch failed"):
+        _grid_backward(x, s, b, stats, x, 32, True, bplan._replace(
+            grid=min(8 * C // bplan.cb * bplan.cluster, 4 * bplan.grid)))

@@ -3,12 +3,18 @@ shape (`ops/groupnorm.py::_plan`, `_plan_backward`).
 
 Pure arithmetic on shapes, so they are held here on the CPU. K1: at the 28
 norm layers of the full coord net, 26 take the one-launch cluster design and
-the two stem layers at 480x720 and 240x360 the three-pass design. K1-bwd,
+the two stem layers at 480x720 and 240x360 the one-launch grid design. K1-bwd,
 whose slab is x and dy together: the 25 layers at 60x90 take clusters of 8
-CTAs, stem3 a cluster of 16, stem1 and stem2 the four-kernel design. In f32
-and bf16; every
-cluster plan obeys the limits of TMA and of Hopper's clusters. The kernels
-themselves run only on the card (`tests/test_torch_cuda.py`).
+CTAs, stem3 a cluster of 16, stem2 the grid design, stem1 the grid design
+in bf16 (its whole 64-byte pixels, holding what the card takes and
+streaming the rest) and the four-kernel design in f32 (its x + dy outgrow
+the card's shared memory, and 64-byte halves of its pixels measured slower
+streaming); K1's stem1 in f32 holds what the card takes and streams the
+rest. In f32 and bf16; every cluster plan obeys the limits of TMA and of
+Hopper's clusters, every grid plan those of TMA and of a cooperative
+launch; a slab one row beyond what the grid holds takes the three-pass or
+four-kernel design. The kernels themselves run only on the
+card (`tests/test_torch_cuda.py`).
 
 The cross-shard kernels' planner (`_shard_plan`) at every shape those
 kernels meet on the mesh's "spatial" axis: the coord net's layers, the MLR,
@@ -19,12 +25,15 @@ import pytest
 import torch
 
 from crossloc_tpu_torch.ops.groupnorm import (
+    _LINE_BYTES,
     _MIN_ROW_BYTES,
     _SLAB_PER_CTA,
     _SMEM_PER_CTA,
     _SHARD_GRID,
     _cluster_backward_smem,
     _cluster_smem,
+    _grid_box,
+    _grid_smem,
     _plan,
     _plan_backward,
     _shard_plan,
@@ -33,8 +42,8 @@ from crossloc_tpu_torch.ops.groupnorm import (
 
 # (C, H, W, layers per forward, design) of the 28 Conv->GN layers at 480x720
 PATH = [
-    (32, 480, 720, 1, "three_pass"),  # stem1: 11 MB slab
-    (64, 240, 360, 1, "three_pass"),  # stem2: 2.8 MB slab
+    (32, 480, 720, 1, "grid"),        # stem1: 22 MB slab (64 bytes a pixel)
+    (64, 240, 360, 1, "grid"),        # stem2: 5.5 MB slab
     (128, 120, 180, 1, "cluster"),    # stem3
     (256, 60, 90, 4, "cluster"),      # stem4, res1_1..3
     (512, 60, 90, 21, "cluster"),     # res2..fc2 and res2_skip
@@ -42,25 +51,29 @@ PATH = [
 DTYPES = [torch.float32, torch.bfloat16]
 
 
-def _fit_limit(C, G, dtype):
-    """Largest H*W (as H x 1) that the planner still sends to the cluster."""
+def _fit_limit(C, G, dtype, design="cluster", planner=_plan, B=1):
+    """Largest H*W (as H x 1) that `planner` still sends to `design` (the
+    designs take growing slabs in the order cluster, grid, and the old
+    three-pass or four-kernel)."""
     lo, hi = 1, 1 << 22
-    assert _plan(1, lo, 1, C, G, dtype).design == "cluster"
-    assert _plan(1, hi, 1, C, G, dtype).design == "three_pass"
+    order = ["cluster", "grid"]
+    assert order.index(planner(B, lo, 1, C, G, dtype).design) <= order.index(design)
+    assert planner(B, hi, 1, C, G, dtype).design not in order
     while hi - lo > 1:
         mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if _plan(1, mid, 1, C, G, dtype).design == "cluster" else (lo, mid)
+        fits = planner(B, mid, 1, C, G, dtype).design in order[:order.index(design) + 1]
+        lo, hi = (mid, hi) if fits else (lo, mid)
     return lo
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_main_path_designs(dtype):
-    counts = {"cluster": 0, "three_pass": 0}
+    counts = {"cluster": 0, "grid": 0}
     for C, H, W, n, design in PATH:
         plan = _plan(8, H, W, C, min(32, C), dtype)
         assert plan.design == design, (C, H, W)
         counts[design] += n
-    assert counts == {"cluster": 26, "three_pass": 2}
+    assert counts == {"cluster": 26, "grid": 2}
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -71,7 +84,7 @@ def test_cluster_plans_obey_tma_and_cluster_limits(shape, dtype):
     C, H, W = shape
     G = min(32, C)
     plan = _plan(8, H, W, C, G, dtype)
-    if plan.design == "three_pass":
+    if plan.design == "grid":
         assert (C, H, W) in [(32, 480, 720), (64, 240, 360)]
         return
     item = torch.empty((), dtype=dtype).element_size()
@@ -113,10 +126,16 @@ def test_one_row_over_the_fit_limit_takes_three_pass(C, dtype):
     limit = _fit_limit(C, 32, dtype)
     at, over = _plan(1, limit, 1, C, 32, dtype), _plan(1, limit + 1, 1, C, 32, dtype)
     assert at.design == "cluster" and at.cluster == 8
-    assert over.design == "three_pass"
+    assert over.design == "grid"  # one row beyond the cluster: the grid design
     item = torch.empty((), dtype=dtype).element_size()
     # the cluster holds at most 8 x 200 KB of slab
     assert limit * at.cb * item <= 8 * 200 * 1024
+    # one row beyond the grid: the three-pass design
+    grid_limit = _fit_limit(C, 32, dtype, "grid")
+    at, over = _plan(1, grid_limit, 1, C, 32, dtype), _plan(1, grid_limit + 1, 1, C, 32, dtype)
+    assert at.design == "grid" and over.design == "three_pass"
+    # the grid holds at most 132 x 200 KB and streams at most as much again
+    assert grid_limit * at.cb * item <= 2 * 132 * _SLAB_PER_CTA
 
 
 def test_shapes_tma_cannot_box_take_three_pass():
@@ -125,39 +144,37 @@ def test_shapes_tma_cannot_box_take_three_pass():
 
 
 # (C, H, W, K1-bwd calls per train step, design, CTAs per cluster) of K1-bwd
-# on the coord net
+# on the coord net (the grid's CTAs per unit: test_grid_plans_hold_the_stems)
 BWD_PATH = [
-    (32, 480, 720, 1, "four_kernel", 0),  # stem1: 44 MB of x + dy per channel block
-    (64, 240, 360, 1, "four_kernel", 0),  # stem2: 11 MB
+    (32, 480, 720, 1, None, None),        # stem1: 44 MB of x + dy an image (see below)
+    (64, 240, 360, 1, "grid", None),      # stem2: 11 MB
     (128, 120, 180, 1, "cluster", 16),    # stem3: 2.8 MB, more than 8 x 200 KB
     (256, 60, 90, 4, "cluster", 8),
     (512, 60, 90, 21, "cluster", 8),
 ]
 # the MLR merge norm at 60x90: (C, CTAs per cluster in f32, in bf16)
 BWD_MLR = [(1536, 16, 8), (2048, 16, 8)]
+# stem1's backward: the grid design streaming whole 64-byte pixels in bf16;
+# in f32 the four-kernel design (test_stem1_backward_keeps_the_four_kernel_design)
+STEM1_BACKWARD = {torch.float32: "four_kernel", torch.bfloat16: "grid"}
 
 
-def _backward_fit_limit(C, G, dtype):
-    """Largest H*W (as H x 1) that the backward planner still sends to the
-    cluster."""
-    lo, hi = 1, 1 << 22
-    assert _plan_backward(1, lo, 1, C, G, dtype).design == "cluster"
-    assert _plan_backward(1, hi, 1, C, G, dtype).design == "four_kernel"
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        fits = _plan_backward(1, mid, 1, C, G, dtype).design == "cluster"
-        lo, hi = (mid, hi) if fits else (lo, mid)
-    return lo
+def _backward_fit_limit(C, G, dtype, design="cluster"):
+    """Largest H*W (as H x 1) that the backward planner still sends to
+    `design`."""
+    return _fit_limit(C, G, dtype, design, _plan_backward)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_backward_main_path_designs(dtype):
-    counts = {"cluster": 0, "four_kernel": 0}
+    counts = {"cluster": 0, "grid": 0, "four_kernel": 0}
     for C, H, W, n, design, cluster in BWD_PATH:
         plan = _plan_backward(12, H, W, C, min(32, C), dtype)
-        assert (plan.design, plan.cluster) == (design, cluster), (C, H, W)
+        design = design or STEM1_BACKWARD[dtype]
+        assert plan.design == design and cluster in (None, plan.cluster), (C, H, W)
         counts[design] += n
-    assert counts == {"cluster": 26, "four_kernel": 2}
+    f32 = dtype == torch.float32
+    assert counts == {"cluster": 26, "grid": 1 if f32 else 2, "four_kernel": 1 if f32 else 0}
     for C, f32, bf16 in BWD_MLR:
         plan = _plan_backward(8, 60, 90, C, 32, dtype)
         assert (plan.design, plan.cluster) == ("cluster", f32 if dtype == torch.float32 else bf16)
@@ -173,7 +190,7 @@ def test_backward_cluster_plans_obey_tma_and_cluster_limits(shape, dtype):
     G = min(32, C)
     plan = _plan_backward(8, H, W, C, G, dtype)
     item = torch.empty((), dtype=dtype).element_size()
-    if plan.design == "four_kernel":
+    if plan.design in ("grid", "four_kernel"):
         assert (C, H, W) in [(32, 480, 720), (64, 240, 360)]
         return
     gs = C // G
@@ -216,10 +233,17 @@ def test_backward_one_row_over_the_fit_limit_takes_four_kernel(C, dtype):
     at = _plan_backward(1, limit, 1, C, 32, dtype)
     over = _plan_backward(1, limit + 1, 1, C, 32, dtype)
     assert at.design == "cluster" and at.cluster == 16
-    assert over.design == "four_kernel"
+    assert over.design == "grid"  # one row beyond the cluster: the grid design
     item = torch.empty((), dtype=dtype).element_size()
     # the cluster holds at most 16 x 200 KB of x and dy
     assert 2 * limit * at.cb * item <= 16 * _SLAB_PER_CTA
+    # one row beyond the grid: the four-kernel design
+    grid_limit = _backward_fit_limit(C, 32, dtype, "grid")
+    at = _plan_backward(1, grid_limit, 1, C, 32, dtype)
+    over = _plan_backward(1, grid_limit + 1, 1, C, 32, dtype)
+    assert at.design == "grid" and over.design == "four_kernel"
+    # at most 132 x 200 KB held, and at most as much again streamed
+    assert 2 * grid_limit * at.cb * item <= 2 * 132 * _SLAB_PER_CTA
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
@@ -231,6 +255,139 @@ def test_backward_shapes_tma_cannot_box_take_four_kernel(shape, dtype):
     channels in one group: no block of whole groups reaches 64 bytes)."""
     H, W, C, G = shape
     assert _plan_backward(1, H, W, C, G, dtype).design == "four_kernel"
+
+
+# the grid design: the stems at every batch the paths give them (one image,
+# the scripts' 12 with its factor of 3, the spatial runs' 4, the eval and
+# finetune batch 8, and tools/bench.py's 128)
+GRID_STEMS = [(32, 480, 720), (64, 240, 360)]
+GRID_BATCHES = [1, 3, 4, 8, 12, 128]
+DIRECTIONS = {"forward": (_plan, 1), "backward": (_plan_backward, 2)}
+# the (direction, stem, dtype) cases on the grid design; stem1's f32
+# backward keeps the four-kernel design
+GRID_CASES = [(d, stem, dt) for d in ("forward", "backward") for stem in GRID_STEMS
+              for dt in DTYPES if (d, stem, dt) != ("backward", GRID_STEMS[0], torch.float32)]
+# (direction, C, bytes an element) -> (bytes a pixel of the unit's block,
+# streams): the planner's least cost, measured on the card (PERF.md): stem1's
+# f32 forward holds 128-byte rows (the whole pixel) and streams the rest,
+# its bf16 forward holds whole 64-byte pixels and its bf16 backward streams
+# them, stem2 takes 64-byte blocks held whole (4 and 2 units an image)
+GRID_BLOCKS = {("forward", 32, 4): (128, True), ("forward", 32, 2): (64, False),
+               ("forward", 64, 4): (64, False), ("forward", 64, 2): (64, False),
+               ("backward", 32, 2): (64, True),
+               ("backward", 64, 4): (64, False), ("backward", 64, 2): (64, False)}
+
+
+def _grid_case(direction, stem, dtype, batch):
+    planner, slabs = DIRECTIONS[direction]
+    C, H, W = stem
+    return planner(batch, H, W, C, 32, dtype), slabs, C, H * W
+
+
+def _case_id(case):
+    return f"{case[0]}-{'x'.join(map(str, case[1]))}-{str(case[2])[6:]}"
+
+
+@pytest.mark.parametrize("batch", GRID_BATCHES, ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("case", GRID_CASES, ids=_case_id)
+def test_grid_plans_hold_the_stems(case, batch):
+    direction, stem, dtype = case
+    plan, slabs, C, HW = _grid_case(direction, stem, dtype, batch)
+    assert plan.design == "grid"
+    item = torch.empty((), dtype=dtype).element_size()
+    gs = C // 32
+    # whole groups; a TMA box of 16-byte multiples, at most 256 elements a side
+    assert plan.cb % gs == 0 and C % plan.cb == 0
+    row_bytes = plan.cb * item
+    assert row_bytes % 16 == 0 and plan.cb <= 256 and 1 <= plan.box_rows <= 256
+    held = plan.nbox * plan.box_rows
+    streams = held < plan.rows_per_cta
+    assert (row_bytes, streams) == GRID_BLOCKS[(direction, C, item)]
+    # a block of whole lines or the whole pixel, else K1's 64-byte block
+    assert plan.cb == C or row_bytes >= _LINE_BYTES or row_bytes == _MIN_ROW_BYTES
+    # at most _SLAB_PER_CTA held a CTA, at most 132 CTAs a unit, and together
+    # they cover H*W with rows in every CTA
+    assert slabs * held * row_bytes <= _SLAB_PER_CTA
+    assert 1 <= plan.cluster <= 132
+    assert (plan.cluster - 1) * plan.rows_per_cta < HW <= plan.cluster * plan.rows_per_cta
+    assert plan.nbox <= 32
+    if streams:
+        # whole lines or pixels; every SM's CTA a rank of the unit, streaming
+        # at most what it holds, where the card cannot hold the slab
+        assert plan.cb == C or row_bytes >= _LINE_BYTES
+        assert plan.cluster == plan.grid == 132 and plan.rows_per_cta <= 2 * held
+        assert slabs * HW * row_bytes > 132 * _SLAB_PER_CTA
+    else:
+        assert (plan.box_rows, plan.nbox, plan.rows_per_cta, plan.cluster) == _grid_box(
+            HW, plan.cluster, row_bytes)
+    if plan.nbox > 1:  # each box lands 128-byte aligned in shared memory
+        assert plan.box_rows * row_bytes % 128 == 0
+    vpr = row_bytes // 16
+    assert plan.threads == vpr * (256 // vpr)
+    assert plan.smem_bytes == _grid_smem(item, plan.cb, gs, plan.box_rows, plan.nbox,
+                                         plan.threads, slabs == 2)
+    assert plan.smem_bytes <= _SMEM_PER_CTA
+    # one CTA an SM, every SM (or one CTA a pair), whole units a round
+    units = batch * C // plan.cb
+    assert plan.grid == min(132, units * plan.cluster) and plan.grid >= plan.cluster
+    assert plan.grid == units * plan.cluster or plan.grid % plan.cluster == 0
+
+
+@pytest.mark.parametrize("batch", GRID_BATCHES, ids=lambda b: f"B{b}")
+def test_stem1_backward_keeps_the_four_kernel_design(batch):
+    """In f32 stem1's x + dy (88 MB an image, 44 MB a 64-byte half pixel)
+    outgrow the card's shared memory; whole 128-byte pixels would stream
+    more than they hold, and the grid backward on 32-byte blocks held whole
+    or on 64-byte halves streaming both measured slower than the four-kernel
+    design (PERF.md), so the planner keeps it."""
+    C, H, W = GRID_STEMS[0]
+    assert 2 * H * W * 64 > 132 * _SLAB_PER_CTA
+    assert _plan_backward(batch, H, W, C, 32, torch.float32).design == "four_kernel"
+    assert _plan(batch, H, W, C, 32, torch.float32).design == "grid"
+
+
+def _walk(units, k, grid):
+    """Simulate the grid kernels' walk: CTA c takes pairs c, c + grid, ...
+    in order, and a pair's barrier opens once every rank of its unit has
+    arrived. Each step, every CTA with work arrives at its current pair (once)
+    and leaves it if its unit is complete. Returns the pairs each CTA left,
+    in order, and the steps taken; raises if no CTA can leave (deadlock)."""
+    todo = [list(range(c, units * k, grid)) for c in range(grid)]
+    left = [[] for _ in range(grid)]
+    arrived, here = [0] * units, [None] * grid
+    steps = 0
+    while any(todo):
+        steps += 1
+        for c, t in enumerate(todo):
+            if t and here[c] != t[0]:
+                here[c] = t[0]
+                arrived[t[0] // k] += 1
+        moved = [c for c, t in enumerate(todo) if t and arrived[t[0] // k] == k]
+        if not moved:
+            raise AssertionError(f"deadlock: units {units}, k {k}, grid {grid}")
+        for c in moved:
+            left[c].append(todo[c].pop(0))
+    return left, steps
+
+
+@pytest.mark.parametrize("batch", GRID_BATCHES, ids=lambda b: f"B{b}")
+@pytest.mark.parametrize("case", GRID_CASES, ids=_case_id)
+def test_grid_walk_takes_every_pair_once_without_deadlock(case, batch):
+    plan, _, C, _ = _grid_case(*case, batch)
+    units = batch * C // plan.cb
+    left, steps = _walk(units, plan.cluster, plan.grid)
+    assert sorted(p for t in left for p in t) == list(range(units * plan.cluster))
+    # the busiest CTA takes the rounds the planner counted; a unit whose
+    # ranks straddle two rounds waits at most one step more
+    rounds = -(-units * plan.cluster // plan.grid)
+    assert max(len(t) for t in left) == rounds and rounds <= steps <= 2 * rounds
+
+
+@pytest.mark.parametrize("k,grid,units", [(5, 7, 9), (7, 7, 3), (3, 4, 11), (131, 132, 16)])
+def test_grid_walk_ends_when_units_straddle_ctas(k, grid, units):
+    """Units whose ranks straddle two rounds (k not dividing the grid)."""
+    left, _ = _walk(units, k, grid)
+    assert sorted(p for t in left for p in t) == list(range(units * k))
 
 
 # the cross-shard kernels: (C, H, W) of each norm the spatial axis splits (the
@@ -345,3 +502,10 @@ def test_cross_shard_entries_take_the_twins_on_the_cpu():
                                                     1, 32, 60)
     assert all(torch.equal(a, r) for a, r in zip(got, ref))
     assert [f.launches for f in entries] == n0
+
+
+def test_grid_walk_deadlocks_where_a_unit_outnumbers_the_grid():
+    """Why the kernels refuse k > grid (grid_plan_ok): a unit's ranks would
+    share CTAs, and its first ranks wait on ranks queued behind them."""
+    with pytest.raises(AssertionError, match="deadlock"):
+        _walk(2, 5, 3)
