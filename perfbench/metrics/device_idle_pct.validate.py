@@ -1,0 +1,12 @@
+"""Share of the traced stretch in which no device operation ran (one minus the
+union of the kernels', copies' and fills' intervals over the stretch's
+length)."""
+
+UNIT = "%"
+MOVES = "validate_img_s"
+
+
+def read(ctx):
+    if ctx.loop != "validate" or ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)

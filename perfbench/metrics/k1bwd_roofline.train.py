@@ -1,0 +1,18 @@
+"""Share of K1-bwd's roofline: the bytes of every GroupNorm+ReLU backward (x
+and dy read once, dx written once over the channels whose gradient is
+needed) in the traced steps, from the layer table's shapes, at the card's
+memory bandwidth, over the device time of the kernels that implement it
+(`crossloc_tpu_torch/csrc/groupnorm.cu`, named below)."""
+
+UNIT = "%"
+MOVES = "train_img_s"
+KERNELS = r"(?<![A-Za-z0-9_])gnb_"
+
+
+def read(ctx):
+    if ctx.loop != "train" or ctx.trace is None or not ctx.peaks or not ctx.traced_units:
+        return None
+    seconds = ctx.trace.seconds(name_re=KERNELS)
+    if seconds <= 0:
+        return None
+    return 100.0 * ctx.work["k1bwd"].bound_s * ctx.traced_units / seconds
