@@ -74,6 +74,7 @@ from ..train import (
     train_step,
 )
 from ..utils import config_log, read_training_log
+from ..utils.profiling import span
 from . import common
 
 
@@ -192,7 +193,8 @@ def labels_to_wire(batch: dict, task: str) -> dict:
     tasks' labels go as they are."""
     if task != "semantics":
         return {}
-    return {"semantics": batch["semantics"][..., None].astype(np.uint8)}
+    with span("data.wire", bytes=batch["semantics"].size):
+        return {"semantics": batch["semantics"][..., None].astype(np.uint8)}
 
 
 def augment_generator(epoch: int, batch_idx: int) -> torch.Generator:

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .pipeline import to_grayscale
 
 # dataset normalisation statistics (the reference's urbanscape values)
@@ -162,33 +163,34 @@ def augment_batch(images, labels, poses, focal, draws: AugmentDraws,
     image canvas (filled with 0 outside, not nodata); poses [B, 4, 4];
     focal [] or [B]; `draws` on the images' device.
     Returns (normalised images, labels, poses, focal, pp_shift [2])."""
-    B, H, W, _ = images.shape
-    scale = draws.scale
-    angle_rad = draws.angle * (math.pi / 180.0)
-    if cfg.aug_translation:
-        # a zoom-in shows a 1/scale window; its offset is drawn over the
-        # feasible range (zero whenever scale <= 1)
-        slack = torch.clamp(1.0 - 1.0 / scale, min=0.0)
-        lim = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], device=scale.device) * slack
-        tx, ty = draws.translation * lim
-    else:
-        tx = ty = torch.zeros((), device=scale.device)
+    with span("augment"):
+        B, H, W, _ = images.shape
+        scale = draws.scale
+        angle_rad = draws.angle * (math.pi / 180.0)
+        if cfg.aug_translation:
+            # a zoom-in shows a 1/scale window; its offset is drawn over the
+            # feasible range (zero whenever scale <= 1)
+            slack = torch.clamp(1.0 - 1.0 / scale, min=0.0)
+            lim = torch.tensor([(W - 1) / 2.0, (H - 1) / 2.0], device=scale.device) * slack
+            tx, ty = draws.translation * lim
+        else:
+            tx = ty = torch.zeros((), device=scale.device)
 
-    images = color_jitter(images, draws.brightness, draws.contrast)
-    images = normalize_images(images, cfg.grayscale)
-    rx, ry = _inverse_affine_coords(H, W, H, W, scale, angle_rad, tx, ty)
-    images = _bilinear_sample(images, rx, ry, cfg.nodata_value)
+        images = color_jitter(images, draws.brightness, draws.contrast)
+        images = normalize_images(images, cfg.grayscale)
+        rx, ry = _inverse_affine_coords(H, W, H, W, scale, angle_rad, tx, ty)
+        images = _bilinear_sample(images, rx, ry, cfg.nodata_value)
 
-    if semantics:
-        labels = _nearest_sample(labels, rx, ry, 0)
-    else:
-        h, w = labels.shape[1], labels.shape[2]
-        ss = cfg.subsample  # label cells: the crop offset in cells is t / subsample
-        lrx, lry = _inverse_affine_coords(h, w, h, w, scale, angle_rad, tx / ss, ty / ss)
-        labels = _nearest_sample(labels, lrx, lry, cfg.nodata_value)
+        if semantics:
+            labels = _nearest_sample(labels, rx, ry, 0)
+        else:
+            h, w = labels.shape[1], labels.shape[2]
+            ss = cfg.subsample  # label cells: the crop offset in cells is t / subsample
+            lrx, lry = _inverse_affine_coords(h, w, h, w, scale, angle_rad, tx / ss, ty / ss)
+            labels = _nearest_sample(labels, lrx, lry, cfg.nodata_value)
 
-    rot = rotation_z_pose(angle_rad).to(poses.dtype)
-    poses = (poses[..., :, :, None] * rot[None, None, :, :]).sum(-2)  # f32, no TF32
-    focal = focal * scale
-    pp_shift = pp_shift_for_translation(scale, angle_rad, tx, ty)
-    return images, labels, poses, focal, pp_shift
+        rot = rotation_z_pose(angle_rad).to(poses.dtype)
+        poses = (poses[..., :, :, None] * rot[None, None, :, :]).sum(-2)  # f32, no TF32
+        focal = focal * scale
+        pp_shift = pp_shift_for_translation(scale, angle_rad, tx, ty)
+        return images, labels, poses, focal, pp_shift

@@ -5,6 +5,7 @@ the card (counterpart of `crossloc_tpu/data/pipeline.py`).
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -13,12 +14,15 @@ from typing import Iterable, Iterator, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def images_to_wire(images: np.ndarray) -> np.ndarray:
     """[0, 1] float32 images -> uint8 on the k/255 grid, saturating: values
     outside [0, 1] clip instead of wrapping. On-grid pixels round-trip
     exactly through `images_from_wire`."""
-    return np.rint(np.clip(images, 0.0, 1.0) * 255.0).astype(np.uint8)
+    with span("data.wire", bytes=images.size):
+        return np.rint(np.clip(images, 0.0, 1.0) * 255.0).astype(np.uint8)
 
 
 def images_from_wire(images: torch.Tensor) -> torch.Tensor:
@@ -45,8 +49,9 @@ def device_prefetch(iterator: Iterable[dict], device, size: int = 2,
 
     def put(batch):
         out = dict(batch)
-        for k in keys:
-            if k in out and isinstance(out[k], np.ndarray):
+        arrays = [k for k in keys if k in out and isinstance(out[k], np.ndarray)]
+        with span("data.copy", bytes=sum(out[k].nbytes for k in arrays)):
+            for k in arrays:
                 t = torch.from_numpy(out[k])
                 if device.type == "cuda":
                     t = t.pin_memory().to(device, non_blocking=True)
@@ -116,13 +121,18 @@ class Loader:
 
     def __iter__(self) -> Iterator[dict]:
         batches = self.index_batches()
+        epoch = self._epoch
         self._epoch += 1
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def collate(i, b):
+            with span("data.collate", epoch=epoch, batch=i, frames=len(b)):
+                return self.dataset.collate(b)
+
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                futures = [pool.submit(self.dataset.collate, b) for b in batches]
+                futures = [pool.submit(collate, i, b) for i, b in enumerate(batches)]
                 for f in futures:
                     if stop.is_set():
                         f.cancel()
@@ -138,8 +148,9 @@ class Loader:
         t = threading.Thread(target=producer, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for i in itertools.count():
+                with span("data.loader_wait", epoch=epoch, batch=i):
+                    item = q.get()
                 if item is None:
                     break
                 if isinstance(item, Exception):

@@ -25,6 +25,7 @@ from ..losses import (
     scene_coords_loss,
     semantics_loss,
 )
+from ..utils.profiling import span
 
 
 class TrainBatch(NamedTuple):
@@ -142,16 +143,17 @@ def apply_gradients(state: TrainState, params) -> torch.Tensor:
     counts the update. Returns the gradients' global norm (before the clip),
     in float32 over the whole net."""
     opt = state.optimizer
-    grads = [p.grad for p in params if p.grad is not None]
-    grad_norm = torch.sqrt(param_sum(state, [g.float().square().sum() for g in grads]))
-    if opt.grad_clip is not None:
-        # optax.clip_by_global_norm: scale by clip / norm only when norm >= clip
-        scale = torch.where(grad_norm < opt.grad_clip, torch.ones_like(grad_norm),
-                            opt.grad_clip / grad_norm)
-        torch._foreach_mul_(grads, scale)
-    for group in opt.adam.param_groups:
-        group["lr"] = opt.schedule(state.step)
-    opt.adam.step()
+    with span("step.optimizer"):
+        grads = [p.grad for p in params if p.grad is not None]
+        grad_norm = torch.sqrt(param_sum(state, [g.float().square().sum() for g in grads]))
+        if opt.grad_clip is not None:
+            # optax.clip_by_global_norm: scale by clip / norm only when norm >= clip
+            scale = torch.where(grad_norm < opt.grad_clip, torch.ones_like(grad_norm),
+                                opt.grad_clip / grad_norm)
+            torch._foreach_mul_(grads, scale)
+        for group in opt.adam.param_groups:
+            group["lr"] = opt.schedule(state.step)
+        opt.adam.step()
     state.step += 1
     return grad_norm.detach()
 
@@ -167,16 +169,20 @@ def train_step(state: TrainState, batch: TrainBatch, task: str, uncertainty: Opt
     state.optimizer.adam.zero_grad(set_to_none=True)
     if dp is None:
         preds = model(batch.images)
-        loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
-                                        nodata_value, coord_cfg, depth_cfg, normal_cfg)
+        with span("step.loss"):
+            loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty,
+                                            model.num_task_channel, nodata_value, coord_cfg,
+                                            depth_cfg, normal_cfg)
         loss.backward()
         grad_norm = apply_gradients(state, params)
         return {"loss": loss.detach(), "valid_rate": valid_rate, "grad_norm": grad_norm}
     with dp.materialized():
         preds = model(batch.images)
-        loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty, model.num_task_channel,
-                                        nodata_value, coord_cfg, depth_cfg, normal_cfg,
-                                        count_reduce=dp.all_sum, spatial=dp.spatial_block)
+        with span("step.loss"):
+            loss, valid_rate = task_loss_fn(task, preds, batch, uncertainty,
+                                            model.num_task_channel, nodata_value, coord_cfg,
+                                            depth_cfg, normal_cfg, count_reduce=dp.all_sum,
+                                            spatial=dp.spatial_block)
         loss.backward()
         dp.reduce_gradients()
     grad_norm = apply_gradients(state, params)

@@ -1,5 +1,5 @@
 """Logging, output directories, resume bookkeeping and section timers."""
-from .profiling import StopWatch, device_sync, timeit, trace
+from .profiling import StopWatch, device_sync, trace
 from .io import (
     check_encoders,
     config_directory,
@@ -22,6 +22,5 @@ __all__ = [
     "read_training_log",
     "safe_printout",
     "search_epoch_extension_model",
-    "timeit",
     "trace",
 ]
