@@ -2377,8 +2377,8 @@ class Smoke:
         val = data.CamLocDataset(os.path.join(datasets, "urbanscape", "val_drone_real"),
                                  image_height=IMG_H).collate(range(BATCH))
         with torch.no_grad():
-            coords = model.eval()(data.normalize_images(
-                torch.from_numpy(val["image"]).cuda()))[..., :3].float().cpu()
+            images = data.images_from_wire(torch.from_numpy(val["image"]).cuda())
+            coords = model.eval()(data.normalize_images(images))[..., :3].float().cpu()
         del model
         cfg = ransac.RansacConfig()
         idx = torch.randint(0, coords.shape[1] * coords.shape[2],
@@ -3027,7 +3027,8 @@ class Smoke:
 
     def _host_batch(self, datasets, n, section="train_sim", task="coord"):
         """(raw images, labels, poses, focal) of the first n frames of
-        `section` as CPU tensors; semantics labels as the training CLI sends
+        `section` as CPU tensors, the images read back from the batch's uint8
+        wire; semantics labels as the training CLI sends
         them (uint8 class ids, [n, H, W, 1])."""
         import torch
 
@@ -3038,7 +3039,7 @@ class Smoke:
                                depth=task == "depth", normal=task == "normal",
                                semantics=task == "semantics", image_height=IMG_H).collate(range(n))
         labels = dict(b, **labels_to_wire(b, task))[task]
-        return (torch.from_numpy(b["image"]), torch.from_numpy(labels),
+        return (data.images_from_wire(torch.from_numpy(b["image"])), torch.from_numpy(labels),
                 torch.from_numpy(b["pose"]), torch.tensor(float(b["focal"][0])))
 
     def _train_batch(self, datasets, n, device, augment=True, seed=0, section="train_sim",

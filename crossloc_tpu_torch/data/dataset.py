@@ -12,11 +12,14 @@
 
 Modes: 0 = RGB only; 1 = RGB + ground truth (sparse tensors, or dense
 coordinates made from a depth PNG); 2 = RGB-D eye coordinates. Multiple
-roots concatenate. Images are decoded as raw [0, 1] RGB and resized to the
+roots concatenate. Images are decoded as raw RGB and resized to the
 standard height (focal rescaled to match): by the port's native decoder
 (`crossloc_tpu_torch/native/`) when it builds, else by PIL; a dataset
-records which in `decoder`. All augmentation and normalisation runs on the
-training device (data/augment.py).
+records which in `decoder`. An item (`dataset[i]`) holds a float32 [0, 1]
+image; a batch (`collate`, so the `Loader`'s) holds uint8 wire images, the
+bits of `images_to_wire` of the stacked items' images, made in the thread
+that collates. All augmentation and normalisation runs on the training
+device (data/augment.py).
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 
 from .. import native
+from ..utils.profiling import add_counts
+from .pipeline import quantize_images
 
 IMAGE_HEIGHT = 480  # standard input height
 OUTPUT_SUBSAMPLE = 8
@@ -49,12 +54,17 @@ def trim_semantic_label(raw_labels: np.ndarray) -> np.ndarray:
     return out
 
 
-def _load_image(path: str) -> np.ndarray:
-    """Decode to float32 RGB [H, W, 3] in [0, 1]; gray and RGBA become RGB."""
+def _load_rgb(path: str) -> np.ndarray:
+    """Decode with PIL to uint8 RGB [H, W, 3]; gray and RGBA become RGB."""
     from PIL import Image
 
     with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
+        return np.asarray(im.convert("RGB"))
+
+
+def _load_image(path: str) -> np.ndarray:
+    """Decode with PIL to float32 RGB [H, W, 3] in [0, 1]."""
+    return _load_rgb(path).astype(np.float32) / 255.0
 
 
 def _resize_height(img: np.ndarray, height: int) -> np.ndarray:
@@ -86,6 +96,32 @@ def _load_image_resized(path: str, image_height: int, on_fallback=None):
             on_fallback(path)
     img = _load_image(path)
     return _resize_height(img, image_height), image_height / img.shape[0]
+
+
+def _load_wire_image(path: str, image_height: int, on_fallback=None):
+    """(image [image_height, W', 3] uint8, focal scale, direct): the bits of
+    `quantize_images` of `_load_image_resized`'s image. Where the stored
+    frame has the standard height (`direct`), the decoder's bytes as they
+    are, no float32 image made; otherwise the float32 route, quantized,
+    since a resampled float does not round-trip through bytes."""
+    if native.available():
+        dims = native.image_dims(path)
+        if dims is not None and dims[0] == image_height:
+            img = native.load_image_bytes(path, *dims)
+            if img is not None:
+                return img, 1.0, True
+        elif dims is not None:
+            img = native.load_image_std_height(path, image_height)
+            if img is not None:
+                return quantize_images(img), image_height / dims[0], False
+        if on_fallback is not None:
+            on_fallback(path)
+    rgb = _load_rgb(path)
+    h = rgb.shape[0]
+    if h == image_height:
+        return rgb, 1.0, True
+    img = _resize_height(rgb.astype(np.float32) / 255.0, image_height)
+    return quantize_images(img), image_height / h, False
 
 
 def decoder_line(dataset) -> str:
@@ -128,7 +164,7 @@ def _chw_to_hwc(t: np.ndarray) -> np.ndarray:
 class CamLocItem:
     """One datapoint: image + pose + labels, numpy, channels-last."""
 
-    image: np.ndarray  # [480, W, 3] float32 in [0, 1]
+    image: np.ndarray  # [480, W, 3] float32 in [0, 1] (uint8 inside `collate`)
     pose: np.ndarray  # [4, 4] cam-to-world
     focal: float  # rescaled to the standard image height
     file_name: str
@@ -190,6 +226,11 @@ class CamLocDataset:
     def __getitem__(self, idx: int) -> CamLocItem:
         img, f_scale = _load_image_resized(self.rgb_files[idx], self.image_height,
                                            self._fallback)
+        return self._item(idx, img, f_scale)
+
+    def _item(self, idx: int, img: np.ndarray, f_scale: float) -> CamLocItem:
+        """Item `idx` around its decoded image (float32 or uint8) and the
+        focal scale of its resize: the pose, calibration and labels."""
         focal = float(np.loadtxt(self.calib_files[idx])) * f_scale
         pose = np.loadtxt(self.pose_files[idx]).astype(np.float32)
         item = CamLocItem(image=img, pose=pose, focal=focal, file_name=self.rgb_files[idx])
@@ -244,8 +285,19 @@ class CamLocDataset:
         return out.astype(np.float32)
 
     def collate(self, indices: Sequence[int]) -> dict:
-        """Stack items into a host batch dict (numpy, NHWC)."""
-        items = [self[i] for i in indices]
+        """Stack items into a host batch dict (numpy, NHWC). `image` is the
+        uint8 wire batch [B, H, W, 3]: every frame bit-equal to
+        `images_to_wire` of the item's float32 image, the decoder's bytes
+        as they are where no resize is needed. The frames that took that
+        route are added to the enclosing span as its `direct` count (the
+        Loader's `data.collate`)."""
+        items, direct = [], 0
+        for i in indices:
+            img, f_scale, took_bytes = _load_wire_image(self.rgb_files[i], self.image_height,
+                                                        self._fallback)
+            items.append(self._item(i, img, f_scale))
+            direct += took_bytes
+        add_counts(direct=direct)
         batch = {
             "image": np.stack([it.image for it in items]),
             "pose": np.stack([it.pose for it in items]),

@@ -1,6 +1,10 @@
 """Host input pipeline: epoch-keyed shuffling and sharding, batching with
 background decoding, the uint8 wire format and a pinned-memory prefetch to
 the card (counterpart of `crossloc_tpu/data/pipeline.py`).
+
+The `Loader`'s workers collate batches whose images are already uint8 wire
+images (`CamLocDataset.collate`); `images_to_wire` hands such a batch on as
+it is, so the main thread converts nothing.
 """
 from __future__ import annotations
 
@@ -17,12 +21,25 @@ import torch
 from ..utils.profiling import span
 
 
-def images_to_wire(images: np.ndarray) -> np.ndarray:
+def quantize_images(images: np.ndarray) -> np.ndarray:
     """[0, 1] float32 images -> uint8 on the k/255 grid, saturating: values
     outside [0, 1] clip instead of wrapping. On-grid pixels round-trip
-    exactly through `images_from_wire`."""
+    exactly through `images_from_wire`. Opens no span: the Loader's workers
+    run it on the frames `CamLocDataset.collate` resamples."""
+    return np.rint(np.clip(images, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def images_to_wire(images: np.ndarray) -> np.ndarray:
+    """Host images -> the uint8 wire, on the caller's thread, under a
+    `data.wire` span that counts the bytes it converted. A uint8 array (a
+    `CamLocDataset.collate` or `Loader` batch) is on the wire already: it is
+    returned as it is, with no copy, and `bytes=0`. Any other dtype goes
+    through `quantize_images`."""
+    if images.dtype == np.uint8:
+        with span("data.wire", bytes=0):
+            return images
     with span("data.wire", bytes=images.size):
-        return np.rint(np.clip(images, 0.0, 1.0) * 255.0).astype(np.uint8)
+        return quantize_images(images)
 
 
 def images_from_wire(images: torch.Tensor) -> torch.Tensor:
@@ -75,7 +92,10 @@ class Loader:
     permutation, so a resumed run sees the data of an uninterrupted one;
     `set_epoch(E)` before iterating, else each pass advances the epoch. A
     `shard` (rank, world) reads idx[rank::world] cut to len // world, the
-    same count on every rank. `drop_last` drops a short last batch.
+    same count on every rank. `drop_last` drops a short last batch. Each
+    batch is the dataset's `collate`, run in a worker under a `data.collate`
+    span (of a `CamLocDataset`: uint8 wire images, and the span's `direct`
+    count says how many frames took the decoder's bytes as they are).
 
     `num_workers` and `prefetch` keep the JAX package's `Loader` signature;
     every caller takes their defaults (4, 2), and no CLI or tool flag sets

@@ -1,6 +1,8 @@
 """The port's native image decoder: `loader.cpp` behind a ctypes C ABI
 (counterpart of `crossloc_tpu/native/__init__.py`, same functions and
-signatures, `None` on any failure).
+signatures, `None` on any failure), and `load_image_bytes`, which hands out
+the decoded uint8 bytes of a frame that needs no resize: the data layer's
+batches (`CamLocDataset.collate`) take them as they are.
 
 `loader.cpp` becomes `build/libclloader-<hash>.so` inside the package
 (git-ignored), compiled with g++ at first use: nothing is compiled when the
@@ -116,6 +118,9 @@ def _load(quiet: bool = True) -> Optional[ctypes.CDLL]:
         lib.cl_load_image.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
                                       ctypes.POINTER(ctypes.c_float)]
         lib.cl_load_image.restype = ctypes.c_int
+        lib.cl_load_image_u8.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_uint8)]
+        lib.cl_load_image_u8.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -154,6 +159,20 @@ def load_image(path: str, target_h: int, target_w: int) -> Optional[np.ndarray]:
     out = np.empty((target_h, target_w, 3), dtype=np.float32)
     rc = lib.cl_load_image(os.fsencode(path), target_h, target_w,
                            out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
+    return out if rc == 0 else None
+
+
+def load_image_bytes(path: str, h: int, w: int) -> Optional[np.ndarray]:
+    """Decode to [h, w, 3] uint8, the decoded bytes as they are (the
+    numerators of `load_image`'s byte / 255 without a resize), or None;
+    None too where the stored size is not (h, w): this entry never
+    resizes."""
+    lib = _load()
+    if lib is None or h <= 0 or w <= 0 or h * w > MAX_PIXELS:
+        return None
+    out = np.empty((h, w, 3), dtype=np.uint8)
+    rc = lib.cl_load_image_u8(os.fsencode(path), h, w,
+                              out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
     return out if rc == 0 else None
 
 

@@ -1,5 +1,6 @@
 // Host-side image decoder of the PyTorch port: PNG and JPEG decode, then a
-// resize to the requested size, emitting float32 RGB in [0, 1].
+// resize to the requested size, emitting float32 RGB in [0, 1]; or, where
+// the stored size is the requested one, the decoded RGB bytes as they are.
 //
 // The port's data layer (crossloc_tpu_torch/data/dataset.py) decodes every
 // training and evaluation image on the host, in a thread pool. A ctypes call
@@ -15,7 +16,8 @@
 // defines CL_WITH_JPEG; without it a JPEG returns failure the same way.
 //
 // C ABI (no Python headers): cl_image_dims reads only the header;
-// cl_load_image decodes and resizes. Both return 0 on success, -1 on failure.
+// cl_load_image decodes and resizes; cl_load_image_u8 decodes and refuses a
+// resize. All return 0 on success, -1 on failure.
 // Built at first use by crossloc_tpu_torch/native/__init__.py with
 // g++ -O3 -fPIC -shared, linked against zlib (and libjpeg).
 
@@ -466,6 +468,23 @@ int cl_load_image(const char* path, int th, int tw, float* out) {
       return 0;
     }
     resize_bilinear_f32(img, th, tw, out);
+    return 0;
+  } catch (...) {
+    return -1;
+  }
+}
+
+// Decode to exactly (th, tw) uint8 RGB, the decoded bytes unchanged (the
+// bytes cl_load_image divides by 255 when it does not resize); out must hold
+// th*tw*3 bytes. Returns -1, writing nothing, where the stored size is not
+// (th, tw): this entry never resizes.
+int cl_load_image_u8(const char* path, int th, int tw, uint8_t* out) {
+  try {
+    if (th <= 0 || tw <= 0 || !pixels_ok(tw, th)) return -1;
+    Image img;
+    if (!decode_any(path, &img)) return -1;
+    if (img.h != th || img.w != tw) return -1;
+    std::memcpy(out, img.rgb.data(), (size_t)th * tw * 3);
     return 0;
   } catch (...) {
     return -1;

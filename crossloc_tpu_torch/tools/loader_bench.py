@@ -6,10 +6,11 @@ On the noise scene of the port's synthetic writer (`data.write_fake_dataset`,
   1. native and PIL decode + resize to the standard height, img/s, at each
      thread count of `--threads` (best of `--repeat`);
   2. the host's usable cores (`len(os.sched_getaffinity(0))`);
-  3. the inline `collate` of one mode-1 batch (decode, label tensor, pose,
-     calibration) with the dataset's decoder, img/s, and the uint8 wire
-     conversion of its images (`images_to_wire`, which the training CLI runs
-     on its main thread), ms a batch;
+  3. the inline `collate` of one mode-1 batch (decode into the uint8 wire
+     images, label tensor, pose, calibration) with the dataset's decoder,
+     img/s, and what the training CLI's main thread still spends on the
+     wire of that batch (`images_to_wire`, which hands collate's uint8
+     images on unconverted), ms a batch;
   4. the `Loader`'s stall: a consumer that sleeps for each of `--step-ms`
      per batch (the card's measured step times) and records how long each
      `next()` waited; the first batch (the pipeline filling) apart from the
@@ -120,7 +121,7 @@ def main(argv=None) -> dict:
         out["collate_inline"] = len(idx) / best
         out["wire_ms"] = 1e3 * wire
         print(f"collate of {len(idx)} mode-1 frames inline ({ds.decoder}): "
-              f"{out['collate_inline']:.1f} img/s; their uint8 wire conversion {1e3 * wire:.2f} ms")
+              f"{out['collate_inline']:.1f} img/s; their wire on the main thread {1e3 * wire:.3f} ms")
 
         out["loader"] = {}
         for step in args.step_ms:

@@ -7,7 +7,8 @@ while a `torch.profiler` records: then it opens a
 under it in the device trace, and keeps a record (`Span`) of its name,
 thread, entry and exit on the `time.time_ns` clock (the profiler's own), the
 enclosing span on its thread and its counts, in a ring of the last
-`RING_SIZE` spans (`records()`, `clear()`). The profiler traces only the
+`RING_SIZE` spans (`records()`, `clear()`); `add_counts` adds to the counts
+of the innermost open span of its thread. The profiler traces only the
 thread that started it; the records also hold the spans of other threads,
 such as the `Loader`'s workers. With no profiler recording, a span costs
 one read of the profiler's flag.
@@ -65,8 +66,8 @@ class _Recording:
         stack = getattr(_local, "stack", None)
         if stack is None:
             stack = _local.stack = []
-        self.parent = stack[-1] if stack else None
-        stack.append(self.name)
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
         self.annotation = torch.profiler.record_function("crossloc." + self.name)
         self.annotation.__enter__()
         self.start_ns = time.time_ns()
@@ -91,6 +92,16 @@ def span(name: str, **counts):
     if not profiler_enabled():
         return _OFF
     return _Recording(name, counts)
+
+
+def add_counts(**counts) -> None:
+    """Add `counts` to the innermost span open on this thread, for work
+    counted below the code that opened it (`CamLocDataset.collate`'s
+    `direct` frames, in the Loader's `data.collate`). A no-op where no span
+    records on this thread."""
+    stack = getattr(_local, "stack", None)
+    if stack:
+        stack[-1].counts.update(counts)
 
 
 def records() -> List[Span]:

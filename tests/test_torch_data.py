@@ -123,7 +123,9 @@ def test_scene_writer_matches_jax(tmp_path, scene_kind):
     """The same draws in the same order. The plane scene's rotation comes from
     each package's float32 Rodrigues, which differ in the last bit now and
     then: labels and poses agree to float32 rounding, and an image pixel may
-    sit one uint8 step apart where the texture crosses a rounding edge."""
+    sit one uint8 step apart where the texture crosses a rounding edge (the
+    port's uint8 batch against the wire of JAX's float32 one, both read back
+    as floats)."""
     kw = dict(n=3, img_h=32, img_w=48, focal=40.0, seed=9, scene=scene_kind)
     jdata.write_fake_dataset(str(tmp_path / "j"), **kw)
     data.write_fake_dataset(str(tmp_path / "t"), **kw)
@@ -131,7 +133,8 @@ def test_scene_writer_matches_jax(tmp_path, scene_kind):
                             semantics=True, image_height=32).collate([0, 1, 2])
     t = data.CamLocDataset(str(tmp_path / "t"), coord=True, depth=True, normal=True,
                            semantics=True, image_height=32).collate([0, 1, 2])
-    d_img = np.abs(t["image"] - j["image"])
+    d_img = np.abs(data.images_from_wire(torch.from_numpy(t["image"])).numpy()
+                   - data.images_from_wire(torch.from_numpy(jdata.images_to_wire(j)["image"])).numpy())
     assert d_img.max() <= 1.0 / 255 + 1e-7 and (d_img > 0).mean() < 0.01
     np.testing.assert_allclose(t["pose"], j["pose"], atol=1e-5)
     np.testing.assert_allclose(t["coord"], j["coord"], rtol=1e-5, atol=1e-3)

@@ -1,6 +1,7 @@
 """The port's `Loader(num_workers, prefetch)` against the JAX package's
 `Loader` on one scene: the same batches in the same order for every worker
-count, and a producer's error raised in the consumer."""
+count (the port's uint8 images against the wire of JAX's float32 ones), and
+a producer's error raised in the consumer."""
 import threading
 
 import numpy as np
@@ -39,7 +40,8 @@ def test_batches_and_order_match_jax(scene, num_workers, prefetch, shuffle, drop
         assert len(got) == len(want) == len(ours)
         for g, w in zip(got, want):
             assert g["file_name"] == w["file_name"]
-            for key in ("image", "pose", "focal", "coord"):
+            np.testing.assert_array_equal(g["image"], jdata.images_to_wire(w)["image"])
+            for key in ("pose", "focal", "coord"):
                 np.testing.assert_array_equal(g[key], w[key])
 
 

@@ -119,6 +119,19 @@ def test_no_profiler_no_annotation_no_clock_no_record(monkeypatch, call):
     assert profiling.records() == []
 
 
+def test_add_counts_reaches_the_innermost_open_span_of_its_thread():
+    profiling.add_counts(n=1)  # no span open: nothing to add to, nothing raised
+    with _cpu_profile():
+        with profiling.span("outer", a=1):
+            with profiling.span("inner"):
+                profiling.add_counts(n=2)
+            profiling.add_counts(m=3)
+    names = _by_name()
+    assert names["inner"][0].counts == {"n": 2}
+    assert names["outer"][0].counts == {"a": 1, "m": 3}
+    assert names["inner"][0].parent == "outer"
+
+
 def test_the_flag_follows_the_profiler_in_every_thread():
     seen = []
 
@@ -225,9 +238,9 @@ def test_loader_workers_record_collate_and_the_consumer_its_waits(scene):
     main = threading.get_ident()
     names = _by_name()
     collate = sorted(names["data.collate"], key=lambda r: r.counts["batch"])
-    assert [r.counts for r in collate] == [{"epoch": 4, "batch": 0, "frames": 3},
-                                           {"epoch": 4, "batch": 1, "frames": 3},
-                                           {"epoch": 4, "batch": 2, "frames": 1}]
+    assert [r.counts for r in collate] == [{"epoch": 4, "batch": 0, "frames": 3, "direct": 3},
+                                           {"epoch": 4, "batch": 1, "frames": 3, "direct": 3},
+                                           {"epoch": 4, "batch": 2, "frames": 1, "direct": 1}]
     assert all(r.thread != main and r.parent is None for r in collate)
     waits = names["data.loader_wait"]  # each batch, then the end of the epoch
     assert [r.counts for r in waits] == [{"epoch": 4, "batch": i} for i in range(len(got) + 1)]

@@ -125,21 +125,24 @@ def test_metrics_match_jax(rng):
 
 def test_data_path_matches_jax(tmp_path):
     """The port's scene writer draws like the JAX one; both datasets read
-    the same batch; the uint8 wire matches on-grid and saturates off-grid."""
+    the same batch (the port's uint8 images the wire of JAX's float32 ones);
+    the uint8 wire matches on-grid and saturates off-grid."""
     jroot, troot = str(tmp_path / "j"), str(tmp_path / "t")
     jdata.write_fake_dataset(jroot, n=2, img_h=48, img_w=72, focal=60.0, seed=5)
     data.write_fake_dataset(troot, n=2, img_h=48, img_w=72, focal=60.0, seed=5)
     jb = jdata.CamLocDataset(jroot, coord=True, raw_image=True, image_height=48).collate([0, 1])
     tb = data.CamLocDataset(troot, image_height=48).collate([0, 1])
-    np.testing.assert_array_equal(tb["image"], jb["image"])
+    np.testing.assert_array_equal(tb["image"], jdata.images_to_wire(jb)["image"])
     np.testing.assert_allclose(tb["pose"], jb["pose"], atol=1e-5)
     np.testing.assert_allclose(tb["coord"], jb["coord"], rtol=1e-5, atol=1e-3)
     np.testing.assert_array_equal(tb["focal"], jb["focal"])
 
     wire = data.images_to_wire(tb["image"])
-    np.testing.assert_array_equal(wire, jdata.images_to_wire({"image": tb["image"]})["image"])
+    assert wire is tb["image"]
+    np.testing.assert_array_equal(data.images_to_wire(jb["image"]),
+                                  jdata.images_to_wire(jb)["image"])
     np.testing.assert_array_equal(data.images_from_wire(torch.from_numpy(wire)).numpy(),
-                                  tb["image"])
+                                  jb["image"])
     clipped = data.images_to_wire(np.array([-0.1, 0.5, 1.2], np.float32))
     np.testing.assert_array_equal(clipped, [0, 128, 255])
 
