@@ -9,7 +9,7 @@ import sys
 import tempfile
 import time
 from types import SimpleNamespace
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -73,6 +73,20 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, workdir: st
                            setup_s=setup_s, evidence=evidence)
 
 
+def per_layer(entries: List[dict], ctx) -> dict:
+    """The readings of the per-layer metrics `entries` from a traced run's
+    context: each metric whose kind of loop (`spec.trains`) is the run's,
+    where its reader finds something to read."""
+    metrics = {}
+    for metric in entries:
+        if spec.trains(metric["name"]) != ctx.training:
+            continue
+        value = spec.metric_reader(metric["name"]).read(ctx)
+        if value is not None:
+            metrics[metric["name"]] = {"value": value, "unit": metric["unit"]}
+    return metrics
+
+
 def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
         t_start: Optional[float] = None, device_extra: Optional[dict] = None) -> dict:
     """Run `cell` once; returns the result line's dict. `t_start` is the
@@ -103,17 +117,12 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device: str = "
         out.update(metrics=metrics, device=device_info)
     else:
         tr = tracer.trace
-        ctx = SimpleNamespace(
-            loop=cell.workload["loop"], trace=tr, host=dict(tracer.host), units=rec["units"],
+        ctx = SimpleNamespace(  # what a reader sees: whether the loop trains, not its name
+            training=bool(loop.TRAINING), trace=tr, host=dict(tracer.host), units=rec["units"],
             traced_units=tracer.units, peaks=peaks_mod.for_device(name, precision(cell.config)),
             config=cell.config, workload=cell.workload)
-        ctx.work = work.counts(cell.config, int(cell.workload["batch"]), ctx.loop == "train",
-                               ctx.peaks)
-        metrics = {}
-        for metric in cell.per_layer:
-            value = spec.metric_reader(metric["name"]).read(ctx)
-            if value is not None:
-                metrics[metric["name"]] = {"value": value, "unit": metric["unit"]}
+        ctx.work = work.counts(cell.config, int(cell.workload["batch"]), ctx.training, ctx.peaks)
+        metrics = per_layer(cell.per_layer, ctx)
         device_info.update(busy_s=tr.busy_s if tr else 0.0, window_s=tr.window_s if tr else 0.0)
         out.update(metrics=metrics, device=device_info)
         if tr is not None:

@@ -1,5 +1,5 @@
 """The program's own spans (`crossloc_tpu_torch/utils/profiling.py`), read
-by the per-layer metrics of the train loop.
+by the per-layer metrics of the loops that train.
 
 The program keeps a record of a span only while a `torch.profiler` records
 at both of its ends. In a run of the benchmark the one profiler is the
@@ -13,14 +13,12 @@ from __future__ import annotations
 import threading
 from typing import List, Optional, Tuple
 
-from .trace import _union
-
-PREFIX = "crossloc."  # the program's spans in the device trace
+from .trace import PROGRAM_PREFIX as PREFIX
 
 
 def records(ctx) -> Optional[list]:
     """The traced stretch's span records, or None."""
-    if ctx.loop != "train" or ctx.trace is None or not ctx.traced_units:
+    if ctx.trace is None or not ctx.traced_units:
         return None
     try:
         from crossloc_tpu_torch.utils import profiling
@@ -50,7 +48,7 @@ def main_ms_per_step(ctx, name: str) -> Optional[float]:
 def device_ms_per_step(ctx, name: str) -> Optional[float]:
     """Device ms per traced step of the kernels launched inside the span
     `name` on the main thread (the span among their ancestors)."""
-    if ctx.loop != "train" or ctx.trace is None or not ctx.traced_units:
+    if ctx.trace is None or not ctx.traced_units:
         return None
     seconds = ctx.trace.seconds(under={PREFIX + name})
     return 1e3 * seconds / ctx.traced_units if seconds > 0 else None
@@ -68,15 +66,3 @@ def overlap_ns(a: List[Tuple[int, int]], b: List[Tuple[int, int]]) -> int:
             j += 1
     return total
 
-
-def main_intervals(ctx, prefix: str, bounds: Tuple[int, int]) -> Optional[List[Tuple[int, int]]]:
-    """The union of the main thread's spans whose names start with
-    `prefix`, clipped to `bounds`."""
-    recs = records(ctx)
-    if recs is None:
-        return None
-    main = threading.main_thread().ident
-    w0, w1 = bounds
-    iv = [(max(r.start_ns, w0), min(r.end_ns, w1)) for r in recs
-          if r.thread == main and r.name.startswith(prefix)]
-    return _union([x for x in iv if x[1] > x[0]]) or None

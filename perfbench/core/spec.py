@@ -5,6 +5,13 @@ traffic is `workloads/<cell>.json`, its model `configs/<config>.json`, its
 loop `loops/<loop>.py` and each per-layer metric's reader
 `metrics/<metric>.py`, all under this folder. Adding a cell, a
 configuration, a loop kind or a metric adds files and edits none.
+
+A loop module declares `TRAINING`, and a traced run asks a per-layer
+metric's reader only where the two agree, never by the loop's name: a
+metric named `<x>.train` in every loop that trains, any other in every
+loop that does not (`trains`). A training loop of another objective
+imports the train loop's parts (`loop("train")`) and replaces its step and
+its reference loss (`loops/train.py`).
 """
 from __future__ import annotations
 
@@ -17,6 +24,10 @@ from typing import Dict, List, Optional
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
 BENCHMARK_FILE = ROOT / "BENCHMARK.json"
+
+# the layers a per-layer metric may name (PERF.md, section 3), from the
+# loop's input down to the card; "solver" is the port's `ransac/`
+LAYERS = ("data", "augmentation", "loss", "solver", "optimizer", "net convs", "norm", "device")
 
 
 def load_json(path: Path) -> dict:
@@ -34,6 +45,17 @@ def workload(name: str) -> dict:
 
 def config(name: str) -> dict:
     return load_json(BENCH_DIR / "configs" / f"{name}.json")
+
+
+def workload_names() -> List[str]:
+    """Every workload file's cell, those `BENCHMARK.json` does not name yet
+    among them."""
+    return sorted(p.stem for p in (BENCH_DIR / "workloads").glob("*.json"))
+
+
+def trains(metric: str) -> bool:
+    """Whether the per-layer metric `metric` is read in loops that train."""
+    return metric.endswith(".train")
 
 
 def _module(path: Path, tag: str) -> ModuleType:

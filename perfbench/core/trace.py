@@ -1,8 +1,9 @@
 """The profiler's record of a traced stretch of the window, reduced to what
 the per-layer readers need: every device kernel with its time and the names
 of the host operations and benchmark spans that launched it, the device's
-busy time (the union of its operations' intervals), and the idle gaps by
-what the main thread was doing.
+busy intervals (the union of its operations' intervals) and their sum, the
+main thread's spans of the program, and the idle gaps by what the main
+thread was doing.
 
 The traced stretch is the benchmark's own span `perfbench.traced` on the
 main thread; device work is clipped to it. A kernel is linked to the host
@@ -17,6 +18,7 @@ from typing import Dict, FrozenSet, List, Optional, Tuple
 
 TRACED = "perfbench.traced"
 SPAN_PREFIX = "perfbench."
+PROGRAM_PREFIX = "crossloc."  # the program's spans (`utils/profiling.py::span`)
 
 
 class Kernel:
@@ -29,13 +31,28 @@ class Kernel:
 
 
 class Trace:
+    """`busy`: the device's busy intervals, sorted and disjoint; `bounds`:
+    the traced stretch; `spans`: the main thread's spans of the program
+    (`crossloc.<name>`) as (start, end, name), clipped to the stretch. All
+    in ns on the profiler's clock."""
+
     def __init__(self, window_s: float, busy_s: float, kernels: List[Kernel],
-                 device_ops: List[Tuple[str, float]], idle_gaps: List[Tuple[str, float]]):
+                 device_ops: List[Tuple[str, float]], idle_gaps: List[Tuple[str, float]],
+                 busy: List[Tuple[int, int]], bounds: Tuple[int, int],
+                 spans: List[Tuple[int, int, str]]):
         self.window_s = window_s
         self.busy_s = busy_s
         self.kernels = kernels
         self.device_ops = device_ops
         self.idle_gaps = idle_gaps
+        self.busy = busy
+        self.bounds = bounds
+        self.spans = spans
+
+    def intervals(self, prefix: str) -> List[Tuple[int, int]]:
+        """The union of the main thread's spans whose names start with
+        `prefix`, sorted and disjoint."""
+        return _union([(s, e) for s, e, name in self.spans if name.startswith(prefix)])
 
     def seconds(self, name_re: Optional[str] = None, under: Optional[set] = None) -> float:
         """Device seconds of the kernels whose name matches `name_re` and
@@ -168,4 +185,7 @@ def reduce(prof) -> Trace:
     def top(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:10]]
 
-    return Trace((w1 - w0) * 1e-9, busy_s, kernels, top(by_name), top(gaps))
+    program = [(max(s, w0), min(e, w1), name) for s, e, name, _ in host[main]
+               if name.startswith(PROGRAM_PREFIX) and min(e, w1) > max(s, w0)]
+    return Trace((w1 - w0) * 1e-9, busy_s, kernels, top(by_name), top(gaps), busy, (w0, w1),
+                 program)

@@ -1,10 +1,11 @@
 """The training loop of the port's train and finetune CLIs
 (`cli/train_single_task.py::run_training`), step for step: the shuffled
-`Loader` over the scene on disk, its batches turned to the uint8 wire on the
-main thread and copied ahead through pinned memory (`device_prefetch`), the
-augmentation drawn per (epoch, batch) and applied on the card
-(`augment_batch`), `train_step` (forward, the coord loss, backward, Adam),
-then the CLI's two reads of the step's valid rate and loss.
+`Loader` over the scene on disk, whose workers collate the uint8 wire
+images, its batches passed through `images_to_wire` and copied ahead
+through pinned memory (`device_prefetch`), the augmentation drawn per
+(epoch, batch) and applied on the card (`augment_batch`), `train_step`
+(forward, the coord loss, backward, Adam), then the CLI's two reads of the
+step's valid rate and loss.
 
 Left out: the CLI's log line and its snapshot writes (a `.net` file every
 epoch), so that a run writes little to disk.
@@ -15,13 +16,19 @@ gradient's norm per leaf worked out from Adam's state after one step, each
 leaf's change after the checked steps), and hands that state to the window. After the window the
 plain reference (`perfbench/reference/`) follows the same steps from the
 same seeded weights, batches and draws.
+
+A training loop of another objective is a loop file of its own that takes
+these parts (`spec.loop("train")`): a `Program` subclass whose `port_step`
+calls its step of the port, a reference loss with `coord_loss`'s signature
+passed to `reference`, `check` and `controls`, and its `CHECKS`. The data
+path, the window, `compare` and `explain` stay these.
 """
 from __future__ import annotations
 
 import math
 import statistics
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -31,6 +38,7 @@ from perfbench.core.tracer import Tracer
 from perfbench.reference import net as ref_net
 from perfbench.reference import train as ref_train
 
+TRAINING = True
 CHECKS = ("loss_gap", "grad_gap", "change_gap")
 
 
@@ -95,15 +103,16 @@ class Program:
 
         # the checked steps, through the window's own calls on this state
         idle = Tracer(False, self.dev)
-        self.evidence = {"rows": [], "draws": [], "losses": [],
+        self.evidence = {"rows": [], "draws": [], "losses": [], "extra": [],
                          "steps_per_epoch": len(self.loader)}
         names = {id(p): n for n, p in model.named_parameters()}
         b1 = opt["betas"][0]
         for k in range(int(wl["checked_steps"])):
-            loss, files, d = self.step(idle)
+            loss, files, d, extra = self.step(idle)
             self.evidence["rows"].append(files)
             self.evidence["draws"].append(d)
             self.evidence["losses"].append(loss)
+            self.evidence["extra"].append(extra)
             if k == 0:
                 adam = self.state.optimizer.adam
                 self.evidence["grad"] = {  # a leaf that got no gradient has no state
@@ -129,8 +138,23 @@ class Program:
                 self._it = None
                 self.epoch += 1
 
+    def port_step(self, tb):
+        """The port's step on one augmented batch, as the CLI calls it: its
+        metrics (0-d tensors, "loss" among them) and what this step adds to
+        the evidence, which the reference loss sees (None here). The CLI
+        reads "valid_rate" after a step that reports one, as `train_step`
+        does; its pose-loss step (`make_dsac_train_step`) reports none, and
+        the CLI then reads the loss alone. A training loop of another
+        objective replaces this method; it may build what its step needs
+        on its first call."""
+        metrics = self.port_train.train_step(self.state, tb, self.cfg["task"],
+                                             self.cfg["uncertainty"], self.cfg["loss"]["nodata"],
+                                             self.loss_cfg)
+        return metrics, None
+
     def step(self, tracer):
-        """One step as the CLI runs it; returns (loss, the rows' files, draws)."""
+        """One step as the CLI runs it; returns (loss, the rows' files,
+        draws, the step's own evidence)."""
         pd, pt = self.port_data, self.port_train
         with tracer.span("data"):
             batch = self._next_batch()
@@ -144,13 +168,13 @@ class Program:
                 self.aug_cfg)
             tb = pt.TrainBatch(images, poses, labels, focal, pp_shift)
         with tracer.span("step"):
-            metrics = pt.train_step(self.state, tb, self.cfg["task"], self.cfg["uncertainty"],
-                                    self.cfg["loss"]["nodata"], self.loss_cfg)
+            metrics, extra = self.port_step(tb)
         with tracer.span("loss_read"):
-            float(metrics["valid_rate"])
+            if "valid_rate" in metrics:
+                float(metrics["valid_rate"])
             loss = float(metrics["loss"])
         self.batch_idx += 1
-        return loss, list(batch["file_name"]), d
+        return loss, list(batch["file_name"]), d, extra
 
     def window(self, seconds: float, tracer) -> dict:
         tr = self.wl["trace"]
@@ -160,7 +184,7 @@ class Program:
         while True:
             if len(times) == tr["skip"]:
                 tracer.start()
-            loss, _, _ = self.step(tracer)
+            loss = self.step(tracer)[0]
             tracer.unit()
             now = time.perf_counter()
             times.append(now - last)
@@ -196,14 +220,34 @@ def _batch(files, device):
     return img, lab, pose, focal
 
 
+def coord_loss(cell, pred, lab, pose, focal, pp, step: int, evidence: dict,
+               rows: Optional[slice]) -> torch.Tensor:
+    """The reference's objective of checked step `step` on the augmented
+    batch: here the coord reprojection loss (`reference/train.py`), which
+    reads the prediction, the labels, the poses, the focal length and the
+    principal point's shift `pp`, and not the rest.
+
+    The rest is for an objective that needs the step's own draws, as the
+    expected pose loss of end-to-end training (`train/dsac_step.py`) needs
+    its hypotheses' sampled cells: its `port_step` draws them from the
+    seed, hands them to the port's step and returns them as evidence;
+    its loss reads them as `evidence["extra"][step]`, keeps the rows that
+    `rows` keeps (None: all; a slice where a fault leaves rows out), and
+    samples its scene coordinates from `pred` with them, its camera from
+    `focal` and `pp`, its ground truth from `pose`."""
+    return ref_train.coord_loss(pred, lab, pose, focal, pp, cell.config["loss"],
+                                cell.config["subsample"])
+
+
 def reference(cell, seed: int, evidence: dict, device, precision: Optional[str] = None,
-              rows: Optional[slice] = None) -> dict:
+              rows: Optional[slice] = None, loss: Callable = coord_loss) -> dict:
     """The plain reference's losses, first-gradient norms and changes per
     leaf over the checked steps, from the same seeded weights, rows and
-    draws. `precision`: by default float32 on a card and float64 on the CPU
-    (where it costs little, and where float32 convolutions round more
-    coarsely than the card's); "tf32" computes it in TF32 (the control).
-    `rows` keeps only those rows of each batch (a fault)."""
+    draws, under the objective `loss`. `precision`: by default float32 on a
+    card and float64 on the CPU (where it costs little, and where float32
+    convolutions round more coarsely than the card's); "tf32" computes it in
+    TF32 (the control). `rows` keeps only those rows of each batch (a
+    fault)."""
     cfg = cell.config
     dev = torch.device(device)
     precision = precision or ("float32" if dev.type == "cuda" else "float64")
@@ -227,15 +271,15 @@ def reference(cell, seed: int, evidence: dict, device, precision: Optional[str] 
             x, lab, pose, focal, pp = ref_train.augment(img, lab, pose, focal, dd, sub,
                                                         cfg["loss"]["nodata"])
             pred = ref_net.forward(x, P, arch)
-            loss = ref_train.coord_loss(pred, lab, pose, focal, pp, cfg["loss"], sub)
+            value = loss(cell, pred, lab, pose, focal, pp, k, evidence, rows)
             for n in leaves:
                 P[n].grad = None
-            loss.backward()
+            value.backward()
             if k == 0:
                 out["grad"] = {n: float(torch.linalg.vector_norm(P[n].grad)) for n in leaves}
             adam.step(ref_train.lr_at(k, cfg["optimizer"], evidence["steps_per_epoch"]))
-            out["losses"].append(float(loss.detach()))
-            del pred, x, img, loss
+            out["losses"].append(float(value.detach()))
+            del pred, x, img, value
         with torch.no_grad():
             out["change"] = {n: float(torch.linalg.vector_norm(P[n] - P0[n])) for n in leaves}
         return out
@@ -267,19 +311,21 @@ def compare(got: dict, ref: dict) -> Dict[str, float]:
     return {"loss_gap": loss_gap, "grad_gap": grad_gap, "change_gap": change_gap}
 
 
-def check(cell, seed: int, evidence: dict, device) -> Dict[str, float]:
-    return compare(evidence, reference(cell, seed, evidence, device))
+def check(cell, seed: int, evidence: dict, device, loss: Callable = coord_loss) -> Dict[str, float]:
+    return compare(evidence, reference(cell, seed, evidence, device, loss=loss))
 
 
-def controls(cell, seed: int, evidence: dict, device) -> Dict[str, Dict[str, float]]:
+def controls(cell, seed: int, evidence: dict, device,
+             loss: Callable = coord_loss) -> Dict[str, Dict[str, float]]:
     """Readings of the program, of the control (the reference in TF32 in
     the program's place) and of a fault (half of each batch left out, the
     mean taken over the rest), each against the float32 reference."""
-    ref = reference(cell, seed, evidence, device)
+    ref = reference(cell, seed, evidence, device, loss=loss)
     half = slice(0, int(cell.workload["batch"]) // 2)
-    tf32 = reference(cell, seed, evidence, device, precision="tf32")
+    tf32 = reference(cell, seed, evidence, device, precision="tf32", loss=loss)
     return {"program": compare(evidence, ref), "tf32": compare(tf32, ref),
-            "half_batch": compare(reference(cell, seed, evidence, device, rows=half), ref),
+            "half_batch": compare(reference(cell, seed, evidence, device, rows=half, loss=loss),
+                                  ref),
             "detail": {"program": explain(evidence, ref), "tf32": explain(tf32, ref)}}
 
 

@@ -29,6 +29,7 @@ from perfbench.core.tracer import Tracer
 from perfbench.reference import net as ref_net
 from perfbench.reference import ransac as ref_ransac
 
+TRAINING = False
 CHECKS = ("coord_gap", "pose_t_gap_m", "pose_r_gap_deg")
 
 

@@ -7,6 +7,6 @@ MOVES = "validate_img_s"
 
 
 def read(ctx):
-    if ctx.loop != "validate" or ctx.trace is None or ctx.trace.window_s <= 0:
+    if ctx.trace is None or ctx.trace.window_s <= 0:
         return None
     return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)

@@ -7,6 +7,6 @@ MOVES = "validate_img_s"
 
 
 def read(ctx):
-    if ctx.loop != "validate" or not ctx.units:
+    if not ctx.units:
         return None
     return 1e3 * ctx.host.get("data", 0.0) / ctx.units

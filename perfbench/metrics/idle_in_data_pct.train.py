@@ -1,11 +1,9 @@
 """Share of the traced stretch in which the device is idle while the main
 thread is inside one of the program's `data.*` spans (waiting on the
-Loader, the uint8 wire, the pinned copy's enqueue).
+Loader, the wire's pass-through, the pinned copy's enqueue).
 
-Reads the device's busy intervals and the stretch's bounds on the
-profiler's clock, `ctx.trace.busy` (sorted, disjoint (start, end) ns) and
-`ctx.trace.bounds` ((start, end) ns); `core/trace.py::reduce` sums them
-away, and this reader gives None until it keeps them."""
+Reads the spans, the device's busy intervals and the stretch's bounds all
+from the profiler's trace, on its one clock (`core/trace.py::Trace`)."""
 from perfbench.core import spans
 
 UNIT = "%"
@@ -13,12 +11,11 @@ MOVES = "train_img_s"
 
 
 def read(ctx):
-    busy = getattr(ctx.trace, "busy", None)
-    bounds = getattr(ctx.trace, "bounds", None)
-    if busy is None or bounds is None or bounds[1] <= bounds[0]:
+    tr = ctx.trace
+    if tr is None or not ctx.traced_units or tr.bounds[1] <= tr.bounds[0]:
         return None
-    data = spans.main_intervals(ctx, "data.", bounds)
-    if data is None:
+    data = tr.intervals(spans.PREFIX + "data.")
+    if not data:
         return None
     in_data = sum(e - s for s, e in data)
-    return 100.0 * (in_data - spans.overlap_ns(data, busy)) / (bounds[1] - bounds[0])
+    return 100.0 * (in_data - spans.overlap_ns(data, tr.busy)) / (tr.bounds[1] - tr.bounds[0])

@@ -9,7 +9,7 @@ KERNELS = r"(?<![A-Za-z0-9_])gn_"
 
 
 def read(ctx):
-    if ctx.loop != "validate" or ctx.trace is None or not ctx.peaks or not ctx.traced_units:
+    if ctx.trace is None or not ctx.peaks or not ctx.traced_units:
         return None
     seconds = ctx.trace.seconds(name_re=KERNELS)
     if seconds <= 0:

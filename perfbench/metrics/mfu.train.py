@@ -9,7 +9,7 @@ MOVES = "train_img_s"
 
 
 def read(ctx):
-    if ctx.loop != "train" or ctx.trace is None or not ctx.peaks or ctx.trace.window_s <= 0:
+    if ctx.trace is None or not ctx.peaks or ctx.trace.window_s <= 0:
         return None
     flop = ctx.work["conv"].flop * ctx.traced_units
     return 100.0 * flop / ctx.trace.window_s / ctx.peaks["flops"]

@@ -11,7 +11,7 @@ import torch
 from perfbench.core import cell as cell_mod
 from perfbench.core import spec
 
-CELLS = ["coord-pretrain-f32-b12", "mlr-finetune-f32-b8", "coord-validate-f32-b64"]
+CELLS = spec.workload_names()  # every workload file, named in BENCHMARK.json or not
 
 
 @pytest.mark.cuda

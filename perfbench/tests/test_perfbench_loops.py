@@ -1,14 +1,21 @@
 """Both loop kinds end to end on the CPU at a small size: the port agrees
 with the plain reference, the result line has the contract's keys, and a
-run with the timed path broken underneath comes out not correct."""
+run with the timed path broken underneath comes out not correct. A
+training loop under another name, built from the train loop's parts
+through its hooks alone, is run and read as the train loop is."""
+import functools
+import tempfile
+import types
+
 import pytest
 import torch
 import torch.nn.functional as F
 
 from perfbench.core import cell as cell_mod
+from perfbench.core import spec
 
 SEED = 2 ** 33 + 5  # more than 32 bits, as large run seeds are
-CELLS = ["coord-pretrain-f32-b12", "mlr-finetune-f32-b8", "coord-validate-f32-b64"]
+CELLS = spec.workload_names()  # every workload file, named in BENCHMARK.json or not
 
 
 def _run(c, trace=False):
@@ -132,3 +139,65 @@ def test_a_dropped_affine_or_bias_fails(tiny, monkeypatch, name, fault):
         monkeypatch.setattr(layers.Conv, "forward", dropped)
     out = _run(tiny(name))
     assert not out["correct"], out["checks"]
+
+
+def _loop_from_train_parts(seen):
+    """A loop kind of its own made from `loops/train.py`'s parts as a loop
+    file would make it: its step through `Program.port_step`, which adds
+    evidence for each step, and its reference loss, which reads it."""
+    base = spec.loop("train")
+
+    class Program(base.Program):
+        def port_step(self, tb):
+            metrics, extra = super().port_step(tb)
+            assert extra is None
+            seen["steps"] += 1
+            return metrics, {"step": seen["steps"] - 1, "rows": tb.images.shape[0]}
+
+    def loss(cell, pred, lab, pose, focal, pp, step, evidence, rows):
+        seen["loss"].append((step, evidence["extra"][step], pred.shape[0]))
+        return base.coord_loss(cell, pred, lab, pose, focal, pp, step, evidence, rows)
+
+    mod = types.ModuleType("perfbench_loop_train_alt")
+    mod.TRAINING, mod.CHECKS, mod.Program, mod.end_to_end = (True, base.CHECKS, Program,
+                                                             base.end_to_end)
+    mod.check = functools.partial(base.check, loss=loss)
+    mod.controls = functools.partial(base.controls, loss=loss)
+    return mod
+
+
+@pytest.fixture
+def train_alt(monkeypatch):
+    seen = {"steps": 0, "loss": []}
+    alt, load = _loop_from_train_parts(seen), spec.loop
+    monkeypatch.setattr(spec, "loop", lambda kind: alt if kind == "train_alt" else load(kind))
+    return seen
+
+
+def test_a_loop_of_train_s_parts_under_another_name_is_correct_and_read(tiny, train_alt):
+    """Traced, the loop under another name comes out correct, its loss sees
+    each checked step's index and evidence, and it gets every per-layer
+    reading the train loop gets on the same cell: the readers follow
+    `TRAINING`."""
+    c = tiny("coord-pretrain-f32-b12")
+    train = _run(c, trace=True)
+    c.workload["loop"] = "train_alt"
+    alt = _run(c, trace=True)
+    assert alt["correct"], alt["checks"]
+    checked = c.workload["checked_steps"]
+    assert train_alt["steps"] >= checked + 2  # the checked steps, then the window's
+    assert train_alt["loss"] == [(k, {"step": k, "rows": 2}, 2) for k in range(checked)]
+    assert "host_wait_ms.train" in train["metrics"]
+    assert set(alt["metrics"]) == set(train["metrics"])
+
+
+def test_a_loop_of_train_s_parts_sees_its_controls(tiny, train_alt):
+    """`controls` passes the loop's loss on: the half-batch fault reaches
+    the loss with the rows it keeps, and reads over the limit."""
+    c = tiny("coord-pretrain-f32-b12")
+    c.workload["loop"] = "train_alt"
+    with tempfile.TemporaryDirectory() as tmp:
+        m = cell_mod.measure(c, SEED, 0.2, False, tmp, "cpu")
+        readings = m.loop.controls(c, SEED, m.evidence, m.dev)
+    assert readings["half_batch"]["loss_gap"] > c.workload["limits"]["loss_gap"]
+    assert {rows for _, _, rows in train_alt["loss"]} == {2, 1}

@@ -1,7 +1,8 @@
 """`core/trace.py::reduce` on a fixed event list, and the readers of the
 program's spans (`core/spans.py`) on hand-built traces and records: the
 values they give, and None where there is no trace, no record, or a
-program that keeps no span records."""
+program that keeps no span records. A traced run asks each reader by
+whether the loop trains, never by its name (`core/cell.py::per_layer`)."""
 import threading
 from types import SimpleNamespace
 
@@ -9,7 +10,8 @@ import pytest
 from torch.autograd import DeviceType
 
 from crossloc_tpu_torch.utils import profiling
-from perfbench.core import spans, spec, trace
+from perfbench.core import cell as cell_mod
+from perfbench.core import spans, spec, trace, work
 
 MAIN, WORKER = threading.main_thread().ident, 1
 
@@ -53,7 +55,10 @@ def _events(program_spans=True):
             Ev("cudaLaunchKernel", 306, 307, "cuda_runtime", 101, linked=7)]
     if program_spans:
         host += [Ev("crossloc.data.loader_wait", 10, 250, "user_annotation", 3),
-                 Ev("crossloc.augment", 300, 320, "user_annotation", 6)]
+                 Ev("crossloc.data.wire", 250, 280, "user_annotation", 9),
+                 Ev("crossloc.data.copy", 280, 300, "user_annotation", 10),
+                 Ev("crossloc.augment", 300, 320, "user_annotation", 6),
+                 Ev("crossloc.data.collate", -500, 100, "user_annotation", 11, thread=WORKER)]
     device = [Ev("sm80_conv_kernel", 350, 600, "kernel", 200, linked=5, cuda=True),
               Ev("void at::native::add_kernel(float)", 320, 340, "kernel", 101, cuda=True),
               Ev("Memcpy HtoD (Pinned -> Device)", 100, 150, "gpu_memcpy", 202, cuda=True),
@@ -82,6 +87,13 @@ def test_reduce_on_a_fixed_event_list(program_spans):
     assert tr.seconds(under={"aten::convolution"}) == pytest.approx(250e-9, rel=1e-12)
     augment = tr.seconds(under={"crossloc.augment"})
     assert augment == (pytest.approx(20e-9, rel=1e-12) if program_spans else 0.0)
+    assert tr.busy == [(100, 150), (320, 340), (350, 600)] and tr.bounds == (0, 1000)
+    # the main thread's program spans, clipped to the stretch; not a worker's
+    assert [n for _, _, n in tr.spans] == ([
+        "crossloc.data.loader_wait", "crossloc.data.wire", "crossloc.data.copy",
+        "crossloc.augment"] if program_spans else [])
+    assert tr.intervals("crossloc.data.") == ([(10, 300)] if program_spans else [])
+    assert tr.intervals("crossloc.augment") == ([(300, 320)] if program_spans else [])
 
 
 def _span(name, start, end, thread=MAIN, **counts):
@@ -109,20 +121,14 @@ READERS = {  # per traced step (2 in the stretch), a collated batch, or a share
 }
 
 
-def _ctx(tr, units=2):
-    return SimpleNamespace(loop="train", trace=tr, traced_units=units, units=units + 3)
-
-
-def _with_busy(tr):
-    tr.busy = [(100, 150), (320, 340), (350, 600)]
-    tr.bounds = (0, 1000)
-    return tr
+def _ctx(tr, units=2, training=True):
+    return SimpleNamespace(training=training, trace=tr, traced_units=units, units=units + 3)
 
 
 @pytest.mark.parametrize("name", sorted(READERS))
 def test_reader_values(monkeypatch, name):
     monkeypatch.setattr(profiling, "records", lambda: list(RECORDS))
-    got = spec.metric_reader(name).read(_ctx(_with_busy(_reduce(_events()))))
+    got = spec.metric_reader(name).read(_ctx(_reduce(_events())))
     want = READERS[name]
     assert got == (None if want is None else pytest.approx(want, rel=1e-9))
 
@@ -132,23 +138,37 @@ def test_reader_none_without_trace_or_from_a_program_without_spans(monkeypatch, 
     reader = spec.metric_reader(name)
     monkeypatch.setattr(profiling, "records", lambda: list(RECORDS))
     assert reader.read(_ctx(None)) is None
-    assert reader.read(_ctx(_with_busy(_reduce(_events())), units=0)) is None
+    assert reader.read(_ctx(_reduce(_events()), units=0)) is None
     monkeypatch.delattr(profiling, "records")  # the parent's program
-    assert reader.read(_ctx(_with_busy(_reduce(_events(program_spans=False))))) is None
+    assert reader.read(_ctx(_reduce(_events(program_spans=False)))) is None
 
 
-@pytest.mark.parametrize("name", sorted(n for n in READERS if "device_ms" not in n))
+@pytest.mark.parametrize("name", sorted(n for n in READERS if "device_ms" not in n
+                                         and n != "idle_in_data_pct.train"))
 def test_span_readers_none_without_records(monkeypatch, name):
     monkeypatch.setattr(profiling, "records", lambda: [])
-    assert spec.metric_reader(name).read(_ctx(_with_busy(_reduce(_events())))) is None
+    assert spec.metric_reader(name).read(_ctx(_reduce(_events()))) is None
 
 
-def test_idle_in_data_needs_the_busy_intervals(monkeypatch):
-    """`reduce` gives no busy intervals or bounds yet: the reader says None."""
-    monkeypatch.setattr(profiling, "records", lambda: list(RECORDS))
+def test_idle_in_data_needs_the_busy_intervals():
+    """The reader takes the busy intervals and the bounds that `reduce`
+    keeps: with the memcpy in the data spans (10, 300) left out of them,
+    the whole of those spans reads idle."""
+    reader = spec.metric_reader("idle_in_data_pct.train")
     tr = _reduce(_events())
-    assert not hasattr(tr, "busy")
-    assert spec.metric_reader("idle_in_data_pct.train").read(_ctx(tr)) is None
+    assert reader.read(_ctx(tr)) == pytest.approx(24.0, rel=1e-9)
+    tr.busy = tr.busy[1:]
+    assert reader.read(_ctx(tr)) == pytest.approx(29.0, rel=1e-9)
+
+
+@pytest.mark.parametrize("records", [[], RECORDS[:1] + [_span("data.copy", 400, 900)]],
+                         ids=["none", "elsewhere"])
+def test_idle_in_data_reads_the_trace_not_the_records(monkeypatch, records):
+    """The data spans come from the trace, on the busy intervals' clock:
+    the program's records, on the host's, change nothing."""
+    monkeypatch.setattr(profiling, "records", lambda: list(records))
+    reader = spec.metric_reader("idle_in_data_pct.train")
+    assert reader.read(_ctx(_reduce(_events()))) == pytest.approx(24.0, rel=1e-9)
 
 
 def test_overlap_of_interval_lists():
@@ -156,3 +176,40 @@ def test_overlap_of_interval_lists():
     assert spans.overlap_ns([(0, 10)], [(10, 20)]) == 0
     assert spans.overlap_ns([], [(0, 5)]) == 0
     assert spans.overlap_ns([(0, 100)], [(10, 20), (30, 40), (90, 200)]) == 30
+
+
+READER_FILES = sorted(p.stem for p in (spec.BENCH_DIR / "metrics").glob("*.py"))
+
+
+def _every_layer_trace():
+    """A hand-built trace with a kernel for every reader: convs, K1, K1-bwd,
+    the program's augment, loss and optimizer spans, the solver's span."""
+    ks = [trace.Kernel(name, 1e-4, frozenset(under)) for name, under in (
+        ("sm80_xmma_fprop_implicit_gemm", {"aten::convolution", "perfbench.step"}),
+        ("gn_cluster_kernel_float_", {"perfbench.step"}),
+        ("gnb_cluster_kernel_float_", {"perfbench.step"}),
+        ("elementwise_kernel", {"crossloc.augment"}),
+        ("reduce_kernel", {"crossloc.step.loss"}),
+        ("multi_tensor_apply_kernel", {"crossloc.step.optimizer"}),
+        ("p3p_kernel", {"perfbench.solve"}))]
+    return trace.Trace(1e-3, 3.2e-4, ks, [], [], busy=[(100, 150), (320, 340), (350, 600)],
+                       bounds=(0, 1000), spans=[(10, 300, "crossloc.data.loader_wait")])
+
+
+@pytest.mark.parametrize("training", [True, False], ids=["trains", "does_not_train"])
+@pytest.mark.parametrize("name", READER_FILES)
+def test_readers_follow_whether_the_loop_trains(monkeypatch, name, training):
+    """A traced run reads a `.train` metric in any loop that trains,
+    whatever its name (the context carries none), and leaves it out in
+    one that does not; a `.validate` metric the other way round. Each
+    reader gives a value on a trace with something of its layer in it."""
+    monkeypatch.setattr(profiling, "records", lambda: list(RECORDS))
+    peaks = {"flops": 67e12, "bytes_per_s": 3.35e12}
+    ctx = _ctx(_every_layer_trace(), training=training)
+    ctx.host, ctx.peaks = {"data": 0.5}, peaks
+    ctx.work = work.counts(spec.config("crossloc-coord-480x720"), 2, training, peaks)
+    got = cell_mod.per_layer([{"name": name, "unit": "u"}], ctx)
+    reads = name.endswith(".train") == training
+    assert (name in got) == reads, got
+    if reads:
+        assert got[name]["value"] > 0

@@ -50,6 +50,10 @@ def test_cell_parts_found_by_name(cell):
     assert c.workload["name"] == cell and c.workload["config"] == c.config["name"]
     loop = spec.loop(c.workload["loop"])
     assert set(c.workload["limits"]) == set(loop.CHECKS)
+    # the loop says whether it trains, and every metric the cell lists is
+    # of that kind: a traced run asks only those (`cell.per_layer`)
+    assert isinstance(loop.TRAINING, bool)
+    assert all(spec.trains(m["name"]) == loop.TRAINING for m in c.per_layer)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
     for m in c.per_layer:
@@ -59,8 +63,10 @@ def test_cell_parts_found_by_name(cell):
 
 
 def test_per_layer_layers_named_alike():
-    layers = {m["layer"] for m in BENCH["per_layer"]}
-    assert layers == {"data", "net convs", "norm", "device"}
+    """Every metric names its layer from the one list, which has room for
+    the solver's."""
+    assert {m["layer"] for m in BENCH["per_layer"]} <= set(spec.LAYERS)
+    assert "solver" in spec.LAYERS and len(set(spec.LAYERS)) == len(spec.LAYERS)
 
 
 def test_a_workload_file_not_yet_named_is_a_cell():
