@@ -21,7 +21,10 @@ the loss stay float32. With `--e2e_pose_loss` (coord only) the epochs from
 `--e2e_warmup_epochs` on minimise the DSAC expected pose loss through the
 differentiable solver instead (`train/dsac_step.py`), with the same
 augmentation, its principal-point shift in the solver's camera, and solver
-draws from a generator keyed by (epoch, batch).
+draws from a generator keyed by (epoch, batch); DSAC*'s `train_e2e.py`
+flags `--hypotheses`, `--threshold`, `--inlieralpha`, `--maxpixelerror`,
+`--weightrot` and `--weighttrans` set its solver and pose loss
+(`e2e_configs`; unset, the step's defaults), and need `--e2e_pose_loss`.
 
 Data parallelism: `--batch_size` is the global batch. `--num_devices N`
 starts N ranks on this host, one card each (`cli/common.py::spawn_ranks`),
@@ -50,7 +53,7 @@ import contextlib
 import logging
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,12 +68,14 @@ from ..data import (
     images_to_wire,
 )
 from ..losses import CoordLossConfig, DepthLossConfig, NormalLossConfig, get_nodata_value
+from ..ransac import PoseLossConfig, RansacConfig
 from ..train import (
     CheckpointManager,
     TrainBatch,
     TrainState,
     make_dsac_train_step,
     make_optimizer,
+    train_ransac_config,
     train_step,
 )
 from ..utils import config_log, read_training_log
@@ -125,6 +130,25 @@ def config_parser(description="Initialize a scene coordinate regression network.
     parser.add_argument("--e2e_warmup_epochs", type=int, default=0,
                         help="epochs of the proxy reprojection loss before the expected "
                              "pose loss takes over")
+    # the solver and pose-loss settings of the expected pose loss, under DSAC*'s
+    # train_e2e.py flag names; unset, each keeps the training step's default
+    parser.add_argument("--hypotheses", type=int, default=None,
+                        help="RANSAC hypotheses per image in the expected pose loss "
+                             "(unset: 16; DSAC* trains with 64); needs --e2e_pose_loss")
+    parser.add_argument("--threshold", type=float, default=None,
+                        help="inlier threshold in pixels (unset: 10); needs --e2e_pose_loss")
+    parser.add_argument("--inlieralpha", type=float, default=None,
+                        help="alpha of the soft inlier count (unset: 100); needs "
+                             "--e2e_pose_loss")
+    parser.add_argument("--maxpixelerror", type=float, default=None,
+                        help="clamp of the reprojection errors in pixels (unset: 100); needs "
+                             "--e2e_pose_loss")
+    parser.add_argument("--weightrot", type=float, default=None,
+                        help="pose loss weight per degree of rotation error (unset: 1); needs "
+                             "--e2e_pose_loss")
+    parser.add_argument("--weighttrans", type=float, default=None,
+                        help="pose loss weight per metre of translation error (unset: 1; "
+                             "DSAC*'s 100 weighs centimetres); needs --e2e_pose_loss")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 convs and GroupNorm; params, norm statistics, outputs "
                              "and the loss stay float32; adds a '-bf16' naming token")
@@ -145,6 +169,11 @@ def config_parser(description="Initialize a scene coordinate regression network.
     return parser
 
 
+# DSAC*'s train_e2e.py flags of the expected pose loss (`e2e_configs`)
+E2E_FLAGS = ("hypotheses", "threshold", "inlieralpha", "maxpixelerror", "weightrot",
+             "weighttrans")
+
+
 def normalize_opt(opt):
     if isinstance(opt.uncertainty, str):
         if opt.uncertainty.lower() == "none":
@@ -160,7 +189,25 @@ def normalize_opt(opt):
     if opt.e2e_pose_loss and opt.task != "coord":
         raise ValueError("--e2e_pose_loss requires --task coord (pose is only "
                          "defined for scene-coordinate regression)")
+    given = [f"--{flag}" for flag in E2E_FLAGS if getattr(opt, flag) is not None]
+    if given and not opt.e2e_pose_loss:
+        raise ValueError(f"{' '.join(given)} set the expected pose loss: they require "
+                         "--e2e_pose_loss")
     return opt
+
+
+def e2e_configs(opt, subsample: int) -> Tuple[RansacConfig, PoseLossConfig]:
+    """The expected pose loss's (RansacConfig, PoseLossConfig): the training
+    step's defaults (`train_ransac_config`, `PoseLossConfig()`) with each of
+    DSAC*'s flags that is set in its place."""
+    def given(**fields):
+        return {k: v for k, v in fields.items() if v is not None}
+
+    rcfg = train_ransac_config(subsample)._replace(**given(
+        hypotheses=opt.hypotheses, inlier_threshold=opt.threshold,
+        inlier_alpha=opt.inlieralpha, max_pixel_error=opt.maxpixelerror))
+    lcfg = PoseLossConfig()._replace(**given(w_rot=opt.weightrot, w_trans=opt.weighttrans))
+    return rcfg, lcfg
 
 
 def _reject_unported(opt) -> None:
@@ -305,7 +352,8 @@ def run_training(opt, output_dir: str, ckpt_output_dir: str, device: torch.devic
                 "--e2e_pose_loss with --uncertainty %s: the uncertainty "
                 "channel gets NO gradient from the pose loss (only the "
                 "coord channels feed the solver)", opt.uncertainty)
-        dsac_step = make_dsac_train_step(model, subsample=subsample)
+        dsac_step = make_dsac_train_step(model, *e2e_configs(opt, subsample),
+                                         subsample=subsample)
     manager = None
     if opt.ckpt_backend != "none":
         manager = CheckpointManager(output_dir, backend=opt.ckpt_backend)

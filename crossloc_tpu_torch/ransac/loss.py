@@ -14,9 +14,11 @@ from typing import Optional
 import torch
 
 from ..geometry import invert_se3, pose_vec_to_w2c
+from ..utils.profiling import span
 from .config import PoseLossConfig, RansacConfig
 from .solver import (
     _project_errors,
+    guard_invalid,
     refine_pose,
     sample_hypotheses,
     selection_probs,
@@ -60,25 +62,48 @@ def expected_pose_loss(
     scene_coords [B, Hs, Ws, 3] (differentiable), gt_poses [B, 4, 4]
     cam-to-world; `pp_shift` [2] or [B, 2] moves the solver camera's
     principal point as the augmentation's crop moved it. Every hypothesis
-    is refined, with `train_refine_steps`. Hypothesis draws as in
-    `solve_batch` (`idx` or `generator`).
+    is refined, with `train_refine_steps`. P3P runs in float64; the
+    hypotheses are scored and refined through `guard_invalid` (an invalid
+    one from a valid one's pose). Draws as in `solve_batch` (`idx` or
+    `generator`).
 
     Returns (mean expected loss, aux): aux["per_image"] [B], and what the
     solver's decisions led to: aux["hyp_valid"] [B, H], aux["poses"]
     [B, H, 6] (the refined hypotheses, detached) and aux["inliers"] [B, H]
     (their hard inlier counts).
+
+    Spans (`utils/profiling.py::span`): `solver.sample` (the minimal sets,
+    P3P, each hypothesis's first good round), `solver.score` (projection
+    errors and soft inlier scores; again for the refined poses' inlier
+    counts), `solver.refine` (every hypothesis refined) and `solver.loss`
+    (pose loss, softmax, expectation), each with the counts `sets` (B H
+    rounds), `hypotheses` (B H) and `cells` (B Hs Ws), and `steps` on
+    `solver.refine`: read from shapes, never from the device.
     """
     device = scene_coords.device
+    B, Hs, Ws = scene_coords.shape[:3]
+    counts = {"sets": B * cfg.hypotheses * cfg.sample_rounds, "hypotheses": B * cfg.hypotheses,
+              "cells": B * Hs * Ws}
     with solver_precision(device):
-        coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg, pp_shift)
-        pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
-        scores = soft_inlier_score(_project_errors(pose6, coords, grid, cams,
-                                                   cfg.max_pixel_error), cfg)
-        probs = selection_probs(scores, hyp_valid)
-        refined = refine_pose(pose6, coords, grid, cams, cfg, steps=cfg.train_refine_steps)
-        losses = pose_loss(invert_se3(pose_vec_to_w2c(refined)), gt_poses[:, None], loss_cfg)
-        per_image = (probs * torch.where(hyp_valid, losses, 0.0)).sum(-1)
-        with torch.no_grad():
+        with span("solver.sample", **counts):
+            coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg,
+                                               pp_shift)
+            # P3P in float64: a near-degenerate minimal set that wins the
+            # softmax has a float32 derivative of rounding alone, hundreds of
+            # times the true one, and it swamps the image's gradient
+            pose6, hyp_valid = sample_hypotheses(coords.double(), grid.double(), cams.double(),
+                                                 cfg, idx, generator)
+            pose6, on = guard_invalid(hyp_valid, coords, pose6.to(coords.dtype))
+        with span("solver.score", **counts):
+            scores = soft_inlier_score(_project_errors(pose6, on, grid, cams,
+                                                       cfg.max_pixel_error), cfg)
+        with span("solver.refine", steps=cfg.train_refine_steps, **counts):
+            refined = refine_pose(pose6, on, grid, cams, cfg, steps=cfg.train_refine_steps)
+        with span("solver.loss", **counts):
+            probs = selection_probs(scores, hyp_valid)
+            losses = pose_loss(invert_se3(pose_vec_to_w2c(refined)), gt_poses[:, None], loss_cfg)
+            per_image = (probs * torch.where(hyp_valid, losses, 0.0)).sum(-1)
+        with span("solver.score", **counts), torch.no_grad():
             inliers = (_project_errors(refined, coords, grid, cams, cfg.max_pixel_error)
                        < cfg.inlier_threshold).sum(-1)
     return per_image.mean(), {"per_image": per_image, "hyp_valid": hyp_valid,

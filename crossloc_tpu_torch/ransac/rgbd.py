@@ -17,7 +17,7 @@ import torch
 from ..geometry import invert_se3, kabsch
 from .config import PoseLossConfig, RansacConfig
 from .loss import pose_loss
-from .solver import selection_probs, solver_precision
+from .solver import guard_invalid, selection_probs, solver_precision
 
 
 class RgbdResult(NamedTuple):
@@ -56,10 +56,14 @@ def _kabsch_refine(R, t, obj, eye, vmask, cfg: RansacConfig):
     return R, t
 
 
-def _hypotheses(obj, eye, vmask, cfg: RansacConfig, idx):
+def _hypotheses(obj, eye, vmask, cfg: RansacConfig, idx, objective: bool = False):
     """Kabsch hypotheses from idx [B, H, sample_rounds, 3]: the first round
-    whose 3 pixels have depth and fit within tau. Returns (R0 [B, H, 3, 3],
-    t0 [B, H, 3], hyp_valid [B, H], scores [B, H])."""
+    whose 3 pixels have depth and fit within tau. For the training
+    `objective` the minimal sets' Kabsch runs in float64, as P3P does in
+    `expected_pose_loss`, and the hypotheses are scored through
+    `solver.guard_invalid`. Returns (R0
+    [B, H, 3, 3], t0 [B, H, 3], hyp_valid [B, H], scores [B, H], the scene
+    coordinates to refine on [B, N, 3])."""
     B, N = obj.shape[:2]
     H, Rr = cfg.hypotheses, cfg.sample_rounds
     if tuple(idx.shape) != (B, H, Rr, 3):
@@ -67,6 +71,8 @@ def _hypotheses(obj, eye, vmask, cfg: RansacConfig, idx):
     idx = idx.to(device=obj.device, dtype=torch.long)
     rows = torch.arange(B, device=obj.device)[:, None, None, None]
     o3, e3 = obj[rows, idx], eye[rows, idx]  # [B, H, Rr, 3, 3]
+    if objective:
+        o3, e3 = o3.double(), e3.double()
     Rk, tk = kabsch(o3, e3)
     pred = torch.einsum("bhrij,bhrnj->bhrni", Rk, o3) + tk[..., None, :]
     d3 = torch.linalg.vector_norm(e3 - pred, dim=-1) * 100.0
@@ -74,10 +80,13 @@ def _hypotheses(obj, eye, vmask, cfg: RansacConfig, idx):
     first = torch.argmax(good.to(torch.uint8), dim=2)
     R0 = torch.gather(Rk, 2, first[:, :, None, None, None].expand(B, H, 1, 3, 3))[:, :, 0]
     t0 = torch.gather(tk, 2, first[:, :, None, None].expand(B, H, 1, 3))[:, :, 0]
+    R0, t0, hyp_valid = R0.to(obj.dtype), t0.to(obj.dtype), good.any(dim=2)
+    if objective:
+        R0, t0, obj = guard_invalid(hyp_valid, obj, R0, t0)
     d = _dist_errors_cm(R0, t0, obj, eye, vmask, cfg.max_pixel_error)
     beta = 5.0 / cfg.inlier_threshold
     scores = cfg.inlier_alpha * torch.sigmoid(-beta * (d - cfg.inlier_threshold)).mean(-1)
-    return R0, t0, good.any(dim=2), scores
+    return R0, t0, hyp_valid, scores, obj
 
 
 def _flatten(scene_coords, camera_coords, valid_mask):
@@ -114,7 +123,7 @@ def solve_rgbd(scene_coords, camera_coords, valid_mask, cfg: RansacConfig = Rans
         obj, eye, vmask = _flatten(scene_coords, camera_coords, valid_mask)
         B, N = obj.shape[:2]
         rows = torch.arange(B, device=device)
-        R0, t0, hyp_valid, scores = _hypotheses(
+        R0, t0, hyp_valid, scores, obj = _hypotheses(
             obj, eye, vmask, cfg, _draw(idx, generator, B, N, cfg, device))
         probs = selection_probs(scores, hyp_valid)
         if not training:
@@ -135,14 +144,15 @@ def expected_pose_loss_rgbd(scene_coords, camera_coords, valid_mask, gt_poses,
                             loss_cfg: PoseLossConfig = PoseLossConfig(), idx=None,
                             generator: Optional[torch.Generator] = None):
     """The DSAC objective of the RGB-D path, E_h~p [ loss(refine(h), gt) ],
-    every hypothesis refined; gt_poses [B, 4, 4] cam-to-world. Returns the
-    mean over the batch."""
+    every hypothesis refined, its hypotheses the objective's
+    (`_hypotheses`); gt_poses [B, 4, 4] cam-to-world. Returns the mean over
+    the batch."""
     device = scene_coords.device
     with solver_precision(device):
         obj, eye, vmask = _flatten(scene_coords, camera_coords, valid_mask)
         B, N = obj.shape[:2]
-        R0, t0, hyp_valid, scores = _hypotheses(
-            obj, eye, vmask, cfg, _draw(idx, generator, B, N, cfg, device))
+        R0, t0, hyp_valid, scores, obj = _hypotheses(
+            obj, eye, vmask, cfg, _draw(idx, generator, B, N, cfg, device), objective=True)
         probs = selection_probs(scores, hyp_valid)
         Rr, tr = _kabsch_refine(R0, t0, obj, eye, vmask, cfg)
         losses = pose_loss(invert_se3(_w2c(Rr, tr)), gt_poses[:, None], loss_cfg)

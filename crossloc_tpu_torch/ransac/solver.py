@@ -180,6 +180,26 @@ def sample_hypotheses(coords, grid, cam_mat, cfg: RansacConfig, idx=None,
     return torch.cat([inverse_rodrigues(R_sel), t_sel], dim=-1), hyp_valid
 
 
+def guard_invalid(hyp_valid, coords, *poses):
+    """(each of `poses` [B, H, ...], coordinates [B, N, 3]) to score and
+    refine in training. An invalid hypothesis weighs nothing, but the pose
+    its first round left can be anything: scored or refined from it, its
+    zero cotangent meets an infinite derivative (an overflow in float32, a
+    NaN) and the image's whole gradient turns NaN. So it takes its image's
+    first valid hypothesis's pose, detached, and an image with none is
+    scored and refined on detached coordinates. The valid hypotheses, the
+    loss and every finite gradient are unchanged."""
+    B, H = hyp_valid.shape
+    rows = torch.arange(B, device=hyp_valid.device)
+    first = torch.argmax(hyp_valid.to(torch.uint8), dim=-1)
+    out = []
+    for p in poses:
+        keep = hyp_valid.reshape((B, H) + (1,) * (p.dim() - 2))
+        out.append(torch.where(keep, p, p[rows, first].detach()[:, None]))
+    some = hyp_valid.any(-1)[:, None, None]
+    return (*out, torch.where(some, coords, coords.detach()))
+
+
 def apply_pp_shift(cams, pp_shift):
     """Offset the principal point of [B, 3, 3] camera matrices by pp_shift,
     [2] (shared) or [B, 2]: the augmentation's zoom-in crop window moves it
@@ -230,14 +250,29 @@ def solve_batch(
     Hypothesis draws come from `idx` [B, H * sample_rounds, 4] when given,
     else from `generator`. Eval mode takes the argmax; `training=True` draws
     the winner from the softmax (`chosen` [B] gives the draw, else
-    `generator` after the hypothesis draws). Gradients flow to scene_coords.
+    `generator` after the hypothesis draws), its hypotheses scored and
+    refined through `guard_invalid`. Gradients flow to scene_coords.
     """
     with solver_precision(scene_coords.device):
         coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg, pp_shift)
+        if not training:
+            pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
+            scores, hard = score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg)
+            return select_and_refine(pose6, hyp_valid, scores, hard, coords, grid, cams, cfg,
+                                     generator=generator)
+        # P3P stays float32 here: nothing of the port trains through this
+        # solve (`expected_pose_loss` does, in float64), and its tests hold its
+        # minimal sets' decisions to the JAX package's float32 ones
         pose6, hyp_valid = sample_hypotheses(coords, grid, cams, cfg, idx, generator)
-        scores, hard = score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg)
-        return select_and_refine(pose6, hyp_valid, scores, hard, coords, grid, cams, cfg,
-                                 training=training, chosen=chosen, generator=generator)
+        stand_in, on = guard_invalid(hyp_valid, coords, pose6)
+        scores, hard = score_hypotheses(stand_in, hyp_valid, on, grid, cams, cfg)
+        with torch.no_grad():  # an invalid hypothesis reports its own pose's score
+            own = score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg)[0]
+        scores = torch.where(hyp_valid, scores, own)
+        # the winner is valid where any is; else refined, with no gradient, as drawn
+        pose6 = torch.where(hyp_valid[..., None], pose6, pose6.detach())
+        return select_and_refine(pose6, hyp_valid, scores, hard, on, grid, cams, cfg,
+                                 training=True, chosen=chosen, generator=generator)
 
 
 def score_hypotheses(pose6, hyp_valid, coords, grid, cams, cfg: RansacConfig):

@@ -6,7 +6,7 @@ from .checkpoint import (
     save_train_state,
     train_state_dict,
 )
-from .dsac_step import make_dsac_train_step
+from .dsac_step import make_dsac_train_step, train_ransac_config
 from .step import (
     Optimizer,
     TrainBatch,
@@ -35,6 +35,7 @@ __all__ = [
     "save_train_state",
     "task_loss_fn",
     "train_state_dict",
+    "train_ransac_config",
     "train_step",
     "update_params",
 ]

@@ -14,15 +14,22 @@ import torch
 
 from ..ransac import PoseLossConfig, RansacConfig, expected_pose_loss
 from ..ransac.solver import solver_precision
+from ..utils.profiling import span
 from .step import TrainBatch, TrainState, apply_gradients, param_sum, update_params
+
+
+def train_ransac_config(subsample: int = 8) -> RansacConfig:
+    """The training solver's default: the JAX package's 16 hypotheses, 8
+    retry rounds and 2 refinement steps, on the model's output grid."""
+    return RansacConfig(hypotheses=16, sample_rounds=8, train_refine_steps=2, subsample=subsample)
 
 
 def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
                          loss_cfg: Optional[PoseLossConfig] = None, subsample: int = 8):
     """step(state, batch, idx=None, generator=None, global_batch=None) ->
     metrics, one update in place minimising the expected pose loss. The
-    default solver config is the JAX package's training one (16 hypotheses,
-    8 retry rounds, 2 refinement steps); `subsample` must match the model's
+    default solver config is the JAX package's training one
+    (`train_ransac_config`); `subsample` must match the model's
     output grid (1 with --fullsize). Hypothesis draws: `idx` or `generator`,
     as in `ransac.solve_batch`; with `global_batch` (offset, size) the
     generator draws for the global batch and this rank takes rows [offset,
@@ -39,8 +46,7 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
         raise ValueError(
             f"ransac_cfg.subsample={ransac_cfg.subsample} conflicts with "
             f"subsample={subsample}; set the grid on the config you pass")
-    cfg = ransac_cfg or RansacConfig(hypotheses=16, sample_rounds=8, train_refine_steps=2,
-                                     subsample=subsample)
+    cfg = ransac_cfg or train_ransac_config(subsample)
     lcfg = loss_cfg or PoseLossConfig()
     ntc = model.num_task_channel
 
@@ -59,7 +65,8 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
         loss, aux = expected_pose_loss(coords, batch.poses, batch.focal.reshape(-1)[0],
                                        (img_h, img_w), cfg, lcfg, pp_shift=batch.pp_shift,
                                        idx=idx, generator=generator)
-        with solver_precision(coords.device):  # the solver's backward in float32 too
+        # the solver's backward in float32 too
+        with solver_precision(coords.device), span("step.backward"):
             loss.backward()
         return loss, aux
 
