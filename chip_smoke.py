@@ -61,7 +61,8 @@ Phases:
   e2e      DSAC end to end: one step of the full-width coord net at B=12
            with the permissive solver config (28 + 28 launches, a positive
            loss), one step on a two-mode input with the CLI's solver config
-           (card gradients against the CPU), the solver's coordinate gradient
+           (card gradients against the CPU), the graphed pose loss against
+           the eager one (`graph`), the solver's coordinate gradient
            against float64 on that input and on the label coordinates, P3P at
            the step's 1,536 minimal sets against float64, `train_single_task
            --e2e_pose_loss --e2e_warmup_epochs 1` on cuda (f32 and --bf16,
@@ -147,6 +148,10 @@ Phases:
   e2e_ab   (extra) crossloc_tpu_torch/tools/e2e_ab.py on cuda for --labels corrupt
            and clean at --lr_e2e 3e-4, 3e-5 and 3e-6: held-out medians, walls
            and per-step times in `<out-dir>/e2e_ab/e2e_ab.jsonl`.
+  graph    (extra) the DSAC* cell's pose loss replayed from its CUDA graphs
+           (`ransac/graph.py`) against the eager loss at B=12, 60 x 90 cells,
+           64 hypotheses: loss and gradient gaps, host and wall ms a call,
+           kernel ms and count, the capture's seconds; `e2e_graph.json`.
 The gradient checks' float64 reference runs on the card with the plain twins.
 
 Prints the card's name and power limit, one JSON line of kernels, and last
@@ -163,6 +168,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -1661,6 +1667,7 @@ class Smoke:
         out = dict(device=self.device_name, smi=nvidia_smi_line())
         out["permissive_step"] = self._e2e_permissive_step(datasets)
         out["step_check"] = self._e2e_step_check(datasets)
+        out["graph"] = self._e2e_graph(datasets)
         out["oracle"] = self._e2e_solver_oracle(datasets)
         out["p3p"] = self._e2e_p3p(datasets)
         out["cli"] = {tag: self._e2e_cli(datasets, work, tag, extra)
@@ -1777,7 +1784,7 @@ class Smoke:
         target = self._e2e_inputs(self._train_batch(datasets, TRAIN_BATCH, "cpu").labels)[
             "two_mode"]
         aux, launches = {}, {}
-        loss_fn = dsac_mod.expected_pose_loss
+        loss_fn, graphed_cls = dsac_mod.expected_pose_loss, dsac_mod.GraphedPoseLoss
 
         def step(state, b):
             run = f"{b.images.device.type}{64 if b.images.dtype == torch.float64 else 32}"
@@ -1789,13 +1796,20 @@ class Smoke:
                 aux.setdefault(run, x)
                 return loss, x
 
-            dsac_mod.expected_pose_loss = recording
+            # a fresh step's one call runs eagerly; `_e2e_graph` holds the replays
+            class Recording(graphed_cls):
+                def __call__(self, *a, **k):
+                    loss, x = super().__call__(*a, **k)
+                    aux.setdefault(run, x)
+                    return loss, x
+
+            dsac_mod.expected_pose_loss, dsac_mod.GraphedPoseLoss = recording, Recording
             ops.group_norm_relu.launches = ops.group_norm_relu_backward.launches = 0
             try:
                 m = make_dsac_train_step(state.model)(state, b, idx=idx.to(b.images.device))
                 torch.cuda.synchronize()
             finally:
-                dsac_mod.expected_pose_loss = loss_fn
+                dsac_mod.expected_pose_loss, dsac_mod.GraphedPoseLoss = loss_fn, graphed_cls
                 state.model = model
             launches.setdefault(run, (ops.group_norm_relu.launches,
                                       ops.group_norm_relu_backward.launches))
@@ -1815,6 +1829,122 @@ class Smoke:
         if (fwd, bwd) != (28, 28):
             raise AssertionError(f"expected 28 K1 and 28 K1-bwd launches, got {fwd}/{bwd}")
         return dict(losses=losses, k1=fwd, k1_bwd=bwd, flips=flips, valid_share=share)
+
+    def phase_graph(self):
+        """The e2e solver's CUDA graphs alone (`_e2e_graph`), to
+        `<out-dir>/e2e_graph.json`."""
+        work, datasets = self._e2e_scene()
+        out = dict(device=self.device_name, smi=nvidia_smi_line(),
+                   graph=self._e2e_graph(datasets))
+        os.makedirs(self.out_dir, exist_ok=True)
+        with open(os.path.join(self.out_dir, "e2e_graph.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        shutil.rmtree(work, ignore_errors=True)
+
+    def _e2e_graph(self, datasets, calls: int = 5):
+        """The graphed pose loss (`ransac/graph.py`) against the eager
+        `expected_pose_loss` at the DSAC* cell's shapes: B=12, 60 x 90 cells,
+        64 hypotheses of 8 rounds, 2 refinement steps, tau 10 px, w_trans
+        100, on the "two_mode" input of `_e2e_inputs`, `calls` calls each
+        with fresh draws, forward and backward. Held: the loss and the
+        coordinates' gradient within 1e-6 of the eager's (relative), the
+        same valid hypotheses. Reported per call, for both: host ms (the
+        call and its backward enqueued), wall ms (CUDA events around them,
+        synchronised) and, from one profiled call, the device's kernel ms
+        and kernel count; and the capture's seconds (the graphed loss's
+        second call, after an eager one of each: both captures and a
+        replay)."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from crossloc_tpu_torch import ransac
+        from crossloc_tpu_torch.ransac.graph import GraphedPoseLoss
+        from crossloc_tpu_torch.ransac.solver import draw_minimal_sets, solver_precision
+
+        b = self._train_batch(datasets, TRAIN_BATCH, "cuda")
+        coords = self._e2e_inputs(b.labels.cpu())["two_mode"].float().cuda()
+        cfg = ransac.RansacConfig(hypotheses=64, sample_rounds=8, train_refine_steps=2)
+        lcfg = ransac.PoseLossConfig(w_trans=100.0)
+        hw = (IMG_H, IMG_W)
+        n_cells = coords.shape[1] * coords.shape[2]
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        graphed = GraphedPoseLoss()
+        fns = {"eager": ransac.expected_pose_loss, "graphed": graphed}
+
+        def call(name, idx):
+            c = coords.clone().requires_grad_()
+            loss, aux = fns[name](c, b.poses, b.focal.reshape(-1)[0], hw, cfg, lcfg,
+                                  pp_shift=b.pp_shift, idx=idx)
+            with solver_precision(c.device):
+                loss.backward()
+            return loss.detach(), c.grad, aux["hyp_valid"]
+
+        def gap(a, ref):
+            return float((a - ref).double().norm() / max(float(ref.double().norm()), 1e-30))
+
+        first_s = {}
+        # the process's first solve loads its kernels; the graphed loss's
+        # first call is eager, its second captures
+        for name in ("eager", "graphed", "capture"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call("graphed" if name == "capture" else name,
+                 draw_minimal_sets(TRAIN_BATCH, n_cells, cfg, gen, "cuda"))
+            torch.cuda.synchronize()
+            first_s[name] = time.perf_counter() - t0
+        capture_s = first_s["capture"]
+        gaps, times = [], {n: [] for n in fns}
+        for _ in range(calls):
+            idx = draw_minimal_sets(TRAIN_BATCH, n_cells, cfg, gen, "cuda")
+            got = {}
+            for name in fns:
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                got[name] = call(name, idx)
+                host = (time.perf_counter() - t0) * 1e3
+                end.record()
+                end.synchronize()
+                times[name].append((host, start.elapsed_time(end)))
+            (gl, gg, gv), (el, eg, ev) = got["graphed"], got["eager"]
+            gaps.append(dict(loss=gap(gl, el), grad=gap(gg, eg), loss_value=float(el),
+                             hyp_valid_equal=bool(torch.equal(gv, ev)),
+                             valid_share=float(ev.float().mean())))
+        busy = {}
+        for name in fns:
+            idx = draw_minimal_sets(TRAIN_BATCH, n_cells, cfg, gen, "cuda")
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                call(name, idx)
+                torch.cuda.synchronize()
+            ms, n, _ = self._kernel_groups(prof)
+            busy[name] = dict(kernel_ms=ms, kernels=n)
+        out = dict(eager_first_s=first_s["eager"], graphed_first_s=first_s["graphed"],
+                   capture_s=capture_s,
+                   captures=graphed.captures, replays=graphed.replays,
+                   gaps=gaps, busy=busy)
+        for name, ts in times.items():
+            out[name] = dict(host_ms=statistics.median(t[0] for t in ts),
+                             wall_ms=statistics.median(t[1] for t in ts))
+        log(f"e2e solver graph B={TRAIN_BATCH} {IMG_H}x{IMG_W} f32 on {self.device_name} "
+            f"({nvidia_smi_line()}): the process's first eager call {first_s['eager']:.3f} s, "
+            f"the graphed loss's first (eager) {first_s['graphed']:.3f} s, its second (capture "
+            f"and replay) {capture_s:.3f} s; per call "
+            "(forward + backward), "
+            + "; ".join(f"{n} host {out[n]['host_ms']:.2f} ms, wall {out[n]['wall_ms']:.2f} ms, "
+                        f"{busy[n]['kernels']} kernels {busy[n]['kernel_ms']:.2f} ms"
+                        for n in fns)
+            + "; largest gaps loss {:.3e}, grad {:.3e}".format(max(g["loss"] for g in gaps),
+                                                               max(g["grad"] for g in gaps)))
+        bad = [g for g in gaps if g["loss"] > 1e-6 or g["grad"] > 1e-6 or not g["hyp_valid_equal"]]
+        if bad:
+            raise AssertionError(f"the graphed pose loss differs from the eager one: {bad}")
+        if (graphed.captures, graphed.replays) != (1, calls + 2):
+            raise AssertionError(f"expected 1 capture and {calls + 2} replays, got "
+                                 f"{graphed.captures} and {graphed.replays}")
+        return out
 
     def _e2e_solver_oracle(self, datasets):
         """The expected pose loss and its gradient with respect to the
@@ -3894,7 +4024,7 @@ class Smoke:
 
 PHASES = ("card", "kernels", "forward", "serve", "train", "finetune", "tasks", "e2e", "parallel",
           "spatial", "loader", "arms")
-EXTRA_PHASES = ("profile", "converge", "rehearsal", "e2e_ab")
+EXTRA_PHASES = ("profile", "converge", "rehearsal", "e2e_ab", "graph")
 
 
 def main(argv=None) -> int:

@@ -75,8 +75,9 @@ def inverse_rodrigues(R):
 
 
 def _bottom_row(top):
-    row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype, device=top.device)
-    return row.expand(top.shape[:-2] + (1, 4))
+    """(0, 0, 0, 1) as [..., 1, 4], made on top's device: no copy from the
+    host, which a CUDA graph's capture refuses."""
+    return torch.eye(4, dtype=top.dtype, device=top.device)[3:].expand(top.shape[:-2] + (1, 4))
 
 
 def pose_vec_to_w2c(pose6):

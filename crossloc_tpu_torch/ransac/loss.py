@@ -46,6 +46,14 @@ def pose_loss(est_c2w, gt_c2w, cfg: PoseLossConfig = PoseLossConfig()):
     return torch.clamp(loss, max=cfg.max_loss)
 
 
+def span_counts(shape, cfg: RansacConfig) -> dict:
+    """The counts of the solver's spans for coordinates of `shape` [B, Hs,
+    Ws, 3]: `sets` (B H rounds), `hypotheses` (B H) and `cells` (B Hs Ws)."""
+    B, Hs, Ws = shape[:3]
+    return {"sets": B * cfg.hypotheses * cfg.sample_rounds, "hypotheses": B * cfg.hypotheses,
+            "cells": B * Hs * Ws}
+
+
 def expected_pose_loss(
     scene_coords,
     gt_poses,
@@ -81,9 +89,7 @@ def expected_pose_loss(
     `solver.refine`: read from shapes, never from the device.
     """
     device = scene_coords.device
-    B, Hs, Ws = scene_coords.shape[:3]
-    counts = {"sets": B * cfg.hypotheses * cfg.sample_rounds, "hypotheses": B * cfg.hypotheses,
-              "cells": B * Hs * Ws}
+    counts = span_counts(scene_coords.shape, cfg)
     with solver_precision(device):
         with span("solver.sample", **counts):
             coords, grid, cams = solver_inputs(scene_coords, focal_length, image_hw, cfg,

@@ -150,6 +150,14 @@ def refine_pose(pose6, coords, grid, cam_mat, cfg: RansacConfig, steps: Optional
     return pose6
 
 
+def draw_minimal_sets(B: int, N: int, cfg: RansacConfig,
+                      generator: Optional[torch.Generator] = None, device=None):
+    """The minimal sets `sample_hypotheses` draws when given no `idx`:
+    [B, H * sample_rounds, 4] cell indices below N, from `generator`."""
+    return torch.randint(0, N, (B, cfg.hypotheses * cfg.sample_rounds, 4), generator=generator,
+                         device=device)
+
+
 def sample_hypotheses(coords, grid, cam_mat, cfg: RansacConfig, idx=None,
                       generator: Optional[torch.Generator] = None):
     """`cfg.hypotheses` pose hypotheses per image from 4-point minimal sets.
@@ -163,7 +171,7 @@ def sample_hypotheses(coords, grid, cam_mat, cfg: RansacConfig, idx=None,
     B, N = coords.shape[:2]
     H, Rr = cfg.hypotheses, cfg.sample_rounds
     if idx is None:
-        idx = torch.randint(0, N, (B, H * Rr, 4), generator=generator, device=coords.device)
+        idx = draw_minimal_sets(B, N, cfg, generator, coords.device)
     elif tuple(idx.shape) != (B, H * Rr, 4):
         raise ValueError(f"idx must be [{B}, {H * Rr}, 4], got {tuple(idx.shape)}")
     idx = idx.to(device=coords.device, dtype=torch.long)

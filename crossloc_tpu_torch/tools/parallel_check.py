@@ -200,10 +200,12 @@ def step_check(spec: Dict[str, Any], out_path: Optional[str] = None) -> Dict[str
     its loss on the host), K1's forward and backward launches per step on
     this rank ("launches") and the cross-shard entries' ("shard_launches":
     stats, apply, backward sums, backward apply), "by_rank" (each rank's
-    own "launches", "shard_launches", "step_ms" and "profile", in rank
-    order), "profile" (with `spec["profile"]`: the last step's wall to the
-    end of its device work beside this process's kernel and copy time on
-    the device, `_device_split`), "held" (after the steps:
+    own "launches", "shard_launches", "step_ms", "profile" and "graphs", in
+    rank order), "graphs" (kind "e2e": the DSAC step's pose-loss graphs,
+    [captures, replays], `ransac/graph.py`), "profile" (with
+    `spec["profile"]`: the last step's wall to the end of its device work
+    beside this process's kernel and copy time on the device,
+    `_device_split`), "held" (after the steps:
     the elements of the flat shard, of the whole sharded tensors, and
     whether the full tensors are freed), and the process group's
     "backend".
@@ -256,8 +258,10 @@ def step_check(spec: Dict[str, Any], out_path: Optional[str] = None) -> Dict[str
         k1, shard = _counts()
         out["launches"].append(k1)
         out["shard_launches"].append(shard)
+    if dsac is not None:
+        out["graphs"] = [dsac.graphed_pose_loss.captures, dsac.graphed_pose_loss.replays]
     out["by_rank"] = _gather_objects({k: out.get(k) for k in ("launches", "shard_launches",
-                                                               "step_ms", "profile")})
+                                                               "step_ms", "profile", "graphs")})
     if dp is not None:
         out["held"] = dict(shard=0 if dp.shard is None else dp.shard.numel(),
                            whole=sum(shape.numel() for shape, _ in dp._layout),

@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import torch
 
 from ..ransac import PoseLossConfig, RansacConfig, expected_pose_loss
-from ..ransac.solver import solver_precision
+from ..ransac.graph import GraphedPoseLoss
+from ..ransac.solver import draw_minimal_sets, solver_precision
 from ..utils.profiling import span
 from .step import TrainBatch, TrainState, apply_gradients, param_sum, update_params
 
@@ -35,7 +36,9 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
     generator draws for the global batch and this rank takes rows [offset,
     offset + B). Under data parallelism (`state.parallel`) the gradients,
     the non-finite count, the loss and the valid share are the global
-    batch's.
+    batch's. On CUDA tensors the expected pose loss and its backward replay
+    CUDA graphs (`ransac/graph.py`: a shape's first step runs eagerly, its
+    second captures); on the CPU the loss runs eagerly.
 
     Metrics, 0-d tensors: "loss", "grad_norm" (after the sanitising below),
     and the diagnostics "valid_share" (share of valid hypotheses) and
@@ -49,6 +52,7 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
     cfg = ransac_cfg or train_ransac_config(subsample)
     lcfg = loss_cfg or PoseLossConfig()
     ntc = model.num_task_channel
+    graphed_pose_loss = GraphedPoseLoss()
 
     def forward_backward(state: TrainState, batch: TrainBatch, idx, generator, global_batch):
         coords = state.model(batch.images)[..., :ntc]
@@ -57,14 +61,13 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
             # the global batch's draws, this rank's rows: the draws of an
             # image do not depend on how the batch is split over ranks
             offset, total = global_batch
-            n_cells = coords.shape[1] * coords.shape[2]
-            idx = torch.randint(0, n_cells, (total, cfg.hypotheses * cfg.sample_rounds, 4),
-                                generator=generator, device=coords.device)
+            idx = draw_minimal_sets(total, coords.shape[1] * coords.shape[2], cfg, generator,
+                                    coords.device)
             idx = idx[offset: offset + coords.shape[0]]
         img_h, img_w = batch.images.shape[1], batch.images.shape[2]
-        loss, aux = expected_pose_loss(coords, batch.poses, batch.focal.reshape(-1)[0],
-                                       (img_h, img_w), cfg, lcfg, pp_shift=batch.pp_shift,
-                                       idx=idx, generator=generator)
+        pose_loss = graphed_pose_loss if coords.is_cuda else expected_pose_loss
+        loss, aux = pose_loss(coords, batch.poses, batch.focal.reshape(-1)[0], (img_h, img_w), cfg,
+                              lcfg, pp_shift=batch.pp_shift, idx=idx, generator=generator)
         # the solver's backward in float32 too
         with solver_precision(coords.device), span("step.backward"):
             loss.backward()
@@ -102,4 +105,5 @@ def make_dsac_train_step(model, ransac_cfg: Optional[RansacConfig] = None,
                 "valid_share": valid_share}
 
     train_step.ransac_cfg = cfg
+    train_step.graphed_pose_loss = graphed_pose_loss
     return train_step
